@@ -1,10 +1,10 @@
-"""nerf_rs_tpu — a TPU-native NeRF training/rendering framework.
+"""nerf_rs_tpu — a NeRF training/rendering framework in JAX.
 
-Brand-new JAX/XLA/Pallas implementation of the full capability surface
-of the reference (cadddr/nerf-rs, a Rust/tch-rs NeRF trainer), designed
-TPU-first: vectorized on-device ray generation, a fused Pallas
-PE+MLP+compositing kernel, data-parallel training over a device mesh
-via shard_map/psum, and an async host pixel pipeline. See SURVEY.md at
+JAX/XLA implementation of the full capability surface of the reference
+(cadddr/nerf-rs, a Rust/tch-rs NeRF trainer): vectorized on-device ray
+generation, PE+MLP+compositing compiled by XLA, data-parallel training
+over a device mesh via shard_map/psum, and an async host pixel
+pipeline. See SURVEY.md at
 the repo root for the reference blueprint.
 """
 

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native NeRF framework.
+"""Configuration for the NeRF framework.
 
 One dataclass unifies the reference's CLI flag surface (reference:
 src/cli.rs:5-66 — 16 flags with defaults) with its compile-time model
@@ -76,17 +76,15 @@ class ModelConfig:
     # Architecture family: "nerf" (PE + 8x256 MLP, above), "hashgrid"
     # (Instant-NGP, arXiv 2201.05989: multiresolution hash encoding +
     # tiny MLPs — models/hashgrid.py), or "factored" (CP-decomposed
-    # multiresolution lines, gather-free — the TPU-native fast field,
-    # models/factored.py). compat=True overrides.
+    # multiresolution lines, gather-free — models/factored.py).
+    # compat=True overrides.
     arch: str = "nerf"
     # mip-NeRF integrated positional encoding (arXiv 2103.13415): each
     # sample is a conical-frustum Gaussian (mean, diag cov) and gamma
     # encodes its EXPECTED sinusoids, E[sin(2^l x)] =
     # sin(2^l mu) exp(-4^l var / 2) — high frequencies self-attenuate
     # with footprint, the anti-aliasing mechanism. Same trunk/head
-    # weights as arch="nerf" (the encoding dim is unchanged). Rides
-    # BOTH whole-ray kernels (in-register conical moments + damped
-    # encoding — kernels/fused_ray.py, fused_train.py) since round 3.
+    # weights as arch="nerf" (the encoding dim is unchanged).
     ipe: bool = False
     hash_levels: int = 16  # L resolution levels
     hash_features: int = 2  # F features per level entry
@@ -96,14 +94,11 @@ class ModelConfig:
     hash_aabb: float = 1.6  # grid covers [-a, a]^3
     hash_mlp_width: int = 64  # tiny-MLP width (both nets; shared by
     # the factored family's heads)
-    # Brick layout (TPU-native hash-table redesign, round 4): each
-    # table entry is a 4^3-vertex BRICK covering 3^3 grid cells (one
-    # 128-lane f32 row at F=2), so a (point, level) costs ONE aligned
-    # 512 B row gather instead of 8 scattered 8 B corner pairs — the
-    # row, not the element, is the TPU's random-access granule
-    # (kernels/gather_rows.py docstring). Same parameter count (brick
-    # entries are 64x bigger, 2^(hash_table_log2-6) of them per level).
-    # Measured A/B: benchmarks/ab_hash_encode.py --brick.
+    # Brick layout: each table entry is a 4^3-vertex BRICK covering
+    # 3^3 grid cells (one 128-wide f32 row at F=2), so a (point, level)
+    # costs ONE contiguous 512 B row gather instead of 8 scattered 8 B
+    # corner pairs. Same parameter count (brick entries are 64x bigger,
+    # 2^(hash_table_log2-6) of them per level).
     hash_brick: bool = False
     hash_geo_feats: int = 15  # sigma-net features feeding the color net
     # Factored (CP) family (models/factored.py):
@@ -118,22 +113,12 @@ class ModelConfig:
     # object ring faint density streaks along axis-aligned corridors
     # outside it; L1 pulls unused knots to zero and suppresses the fog
     fac_l1: float = 0.0
-    # Encode implementation. Default XLA: measured interleaved A/B
-    # (benchmarks/ab_factored.py, v5e) put the XLA step at 6.7 ms vs
-    # 13.2 for the Pallas kernel — XLA fuses the hat-weight build into
-    # the dot as an operand fusion (W never hits HBM there either) and
-    # pipelines it better; the kernel is a measured negative result
-    # kept selectable (kernels/fused_factored.py; no point-cotangent).
-    fac_fused: bool = False
     # mip-NeRF 360 scene contraction (arXiv 2111.12077 eq. 10;
     # ops/contract.py): sample positions (and IPE Gaussians, via the
     # closed-form linearization) are contracted into the radius-2 ball
     # before encoding — the unbounded-scene parameterization. Composes
     # with every family (set hash_aabb/fac_aabb to 2 for the grid
     # families). Pairs with RenderConfig.sampling_space="disparity".
-    # Lives INSIDE both whole-ray kernels since round 4 (in-register
-    # elementwise transform before the encoder — kernels/fused_render.
-    # _contract_points/_contract_gaussian); XLA path for other families.
     contract: bool = False
 
 
@@ -169,8 +154,8 @@ class RenderConfig:
     raw_noise_std: float = 0.0  # sigma perturbation regularizer (paper appendix)
     # Occupancy-grid empty-space skipping (ops/occupancy.py, NerfAcc
     # lineage): a (res^3) EMA'd density grid concentrates the per-ray
-    # sample budget in occupied bins (static shapes — the TPU form of
-    # "skipping"). 0 disables; 64 is the standard resolution.
+    # sample budget in occupied bins (static shapes — skipping without
+    # dynamic ray compaction). 0 disables; 64 is the standard resolution.
     occ_res: int = 0
     occ_bins: int = 64  # ray bins tested against the grid per sample draw
     occ_update_steps: int = 16  # grid EMA update cadence (train steps)
@@ -186,13 +171,6 @@ class RenderConfig:
     # unbounded spacing; pairs with ModelConfig.contract). Requires
     # near > 0. Hierarchical/proposal RESAMPLING is space-free (the
     # inverse CDF interpolates whatever bins it is given).
-    # Pallas interpret-mode override for the fused RENDER kernel
-    # (TrainConfig.kernel_interpret's twin): None = auto (interpret
-    # unless the default backend is a TPU). Set True when rendering on
-    # a CPU mesh while a TPU backend is also registered (the hermetic
-    # multichip dryrun) — default_backend() can't see which devices a
-    # shard_map program targets.
-    kernel_interpret: Optional[bool] = None
     sampling_space: str = "linear"
 
     def __post_init__(self):
@@ -279,23 +257,6 @@ class TrainConfig:
     # profile_start+profile_steps) into the TB run dir (0 = off).
     profile_steps: int = 0
     profile_start: int = 10
-    # rays per grid step of the fused whole-ray train kernel
-    # (use_whole_ray_train); num_rays must divide by it. Swept on v5e at
-    # S=64: R=32 9.23 / R=64 8.61 / R=128 8.27 ms, R=256 exceeds VMEM
-    # (hierarchical/proposal passes rescale rows-per-block by S, so this
-    # sets the R*S operating point, not a hard ray count).
-    whole_ray_block: int = 128
-    # Sub-blocks interleaved per grid step of the whole-ray train
-    # kernel: 2 emits the halves' MXU ops adjacently so one half's
-    # matmul overlaps the other's dependent VPU work (the ~100 vs 91
-    # TFLOP/s probe, docs/PERFORMANCE.md). 1 = round-2 behavior.
-    whole_ray_halves: int = 1
-    # Pallas interpret-mode override for the fused kernels. None = auto
-    # (interpret unless the default backend is a TPU). Set True when the
-    # computation targets a CPU mesh while a TPU backend is also
-    # registered (the hermetic multichip dryrun): default_backend()
-    # can't see which devices a shard_map program runs on.
-    kernel_interpret: Optional[bool] = None
 
 
 @dataclass(frozen=True)
@@ -317,7 +278,7 @@ class DataConfig:
     #   "host"      — async host PrefetchPipeline (data/pipeline.py) with
     #                 ``prefetch`` buffered batches; gold gather via the
     #                 C++ assembler when use_native_loader and built.
-    #                 For pixel stores too large for HBM.
+    #                 For pixel stores too large for device memory.
     batch_mode: str = "per_ray"
     views_per_batch: int = 4  # distinct views per batch (multiview mode)
     # Shard the pixel store's VIEW axis over the data mesh instead of
@@ -374,18 +335,6 @@ class Config:
     proposal: ProposalConfig = field(default_factory=ProposalConfig)
     # Parallelism: number of data-parallel shards; 0 = all local devices.
     num_devices: int = 0
-    # Render via the fused whole-ray Pallas kernel (kernels/fused_ray.py)
-    # — ON by default since round 3: rebuilt on the free-reshape Mosaic
-    # facts (no selector matmuls), it renders the 800x800 frame in
-    # 0.57 s vs XLA's 0.834 (interleaved A/B, benchmarks/ab_render.py)
-    # and compiles 37 s vs 121. Round 2's selector-based kernel lost
-    # (~62 TFLOP/s) and XLA was the default then.
-    use_fused_kernel: bool = True
-    # route TRAINING through the whole-ray fused fwd+bwd kernel
-    # (kernels/fused_train.py): one Pallas launch per step, activations
-    # VMEM-resident, dW accumulated in VMEM. Coarse-only flagship
-    # configs only (see train.step.whole_ray_supported).
-    use_whole_ray_train: bool = False
 
     def __post_init__(self):
         if self.proposal.enabled and self.render.occ_res > 0:
@@ -473,11 +422,11 @@ class Config:
         if self.model.hash_brick and self.model.hash_features != 2:
             # fail at config construction, not at trace time deep in a
             # jitted step (ADVICE r4): the brick row packs 4^3 vertices
-            # x F features into one 128-lane row, which is exact only
+            # x F features into one 128-wide row, which is exact only
             # at F=2 (models/hashgrid.brick_encode)
             raise ValueError(
                 "--hash_brick requires hash_features == 2 (one 4^3 "
-                f"brick = 64 vertices x F = 128 lanes); got "
+                f"brick = 64 vertices x F = 128 values); got "
                 f"hash_features={self.model.hash_features}"
             )
 
@@ -558,5 +507,4 @@ def reference_compat_config() -> Config:
             white_background=False,
         ),
         train=TrainConfig(num_rays=84, precision="f32"),
-        use_fused_kernel=False,
     )

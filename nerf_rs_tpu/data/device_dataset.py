@@ -1,8 +1,9 @@
 """Device-resident dataset: zero-host-work per-step batch sampling.
 
-The TPU-native inversion of the reference's hot CPU batch loop
+The device-side inversion of the reference's hot CPU batch loop
 (get_multiview_batch, src/dataset.rs:63-139, which assembles 84 rays x
-64 points of scalar vecmath per frame): all view images live in HBM as
+64 points of scalar vecmath per frame): all view images live in device
+memory as
 one uint8 array (a 128x128x84-view scene is ~5.5 MB; 800x800x100 lego
 is ~256 MB), and one jitted function does view sampling, pixel-coord
 sampling, gold gather, and ray generation entirely on-device. The host

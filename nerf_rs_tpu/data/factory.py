@@ -31,7 +31,7 @@ def make_dataset(
     ``process_shard=(index, count)`` keeps only views
     ``[index::count]`` — multi-host pixel-store sharding (SURVEY §5.8
     rebuild plan): each host process loads and stores a disjoint view
-    subset, so pod-scale pixel stores split across host RAM/HBM instead
+    subset, so large pixel stores split across host and device memory instead
     of replicating. Per-ray batches draw (view, x, y) iid, so each
     process sampling its local slice is statistically the same as every
     process sampling the union.

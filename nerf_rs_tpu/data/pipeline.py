@@ -1,6 +1,6 @@
 """Async host pixel-batch pipeline with prefetch.
 
-For scenes whose pixel store exceeds HBM (or when host-side gather is
+For scenes whose pixel store exceeds device memory (or when host-side gather is
 preferred), a background thread assembles (view, x, y, gold) index
 batches from the host pixel array and stages them ahead of the
 consumer; ray generation still happens on-device from the indices.

@@ -402,8 +402,7 @@ def render_gold(c2w, height: int, width: int, focal: float,
                 near: float = 2.0, far: float = 6.0,
                 num_samples: int = 512, chunk: int = 4096,
                 field_fn=field, space: str = "linear") -> np.ndarray:
-    # chunk=4096: XLA pads the (chunk, S, 3|5) point/sdf temps to 128
-    # lanes (42x), so a 65536-ray chunk at 512 samples OOMs a 16 GB HBM
+    # chunk=4096 bounds the (chunk, S, 3|5) point/sdf temps
     """Integrate the analytic field to an (H, W, 4) float frame
     (unpremultiplied rgb + alpha=acc), chunked over rays.
 
@@ -477,9 +476,8 @@ def make_blender_scene(out_dir: str, size: int = 800, n_train: int = 100,
     splits = [("train", n_train, seed + 1), ("val", n_val, seed + 2),
               ("test", n_test, seed + 3)]
     # scale the ray chunk down with the sample count: the (chunk, S, 3)
-    # point temps pay the 128-lane pad, so chunk * S is the memory knob
-    # (4096 x 512 is the tuned point; deep360's 3072 samples would OOM
-    # a 16 GB HBM at the default chunk)
+    # point temps make chunk * S the memory knob (4096 x 512 ray-samples
+    # per chunk)
     chunk = max(512, 4096 * 512 // num_samples)
     for split, n, s in splits:
         os.makedirs(os.path.join(out_dir, split), exist_ok=True)

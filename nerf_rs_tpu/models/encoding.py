@@ -21,8 +21,7 @@ def posenc(x: jnp.ndarray, levels: int, include_input: bool = True) -> jnp.ndarr
     applied elementwise; output dim = D*(2*levels [+1]).
 
     Frequencies are ordered level-major [sin(2^l x), cos(2^l x)]_l with
-    the raw input prepended when include_input — the layout the fused
-    Pallas kernel reproduces in-register (kernels/fused_render.py).
+    the raw input prepended when include_input.
     """
     if levels == 0:
         return x

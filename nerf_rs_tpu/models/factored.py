@@ -1,20 +1,15 @@
 """Factored (CP-decomposed) multiresolution radiance field — the
-TPU-native fast-field family (TensoRF lineage, arXiv 2203.09517's CP
+gather-free fast-field family (TensoRF lineage, arXiv 2203.09517's CP
 branch, multi-scale like Instant-NGP's level pyramid).
 
-Why this exists: Instant-NGP's hash tables are built for GPUs, whose
-HBM serves fine-grained random access. On TPU every gather formulation
-measured ~15 ns/element (benchmarks/ab_hash_encode.py — seconds per
-step at flagship scale) and in-kernel Pallas gathers only reach
-128-entry lane shuffles. This family replaces the 3-D table lookup
-with work the TPU is built for:
+This family replaces the hash grid's 3-D table lookup with dense
+matrix products:
 
   * Per axis a and point n, a 2-hot-per-level "hat basis" row
     W_a[n, :] over the concatenated level grids (resolutions like
-    NGP's geometric pyramid) — built with pure VPU arithmetic
-    (relu(1 - |u*R - knot|)), never touching HBM as anything but a
-    matmul operand.
-  * One MXU matmul per axis against a dense (sumR, C) line matrix;
+    NGP's geometric pyramid) — built with elementwise arithmetic
+    (relu(1 - |u*R - knot|)) that XLA fuses into the matmul operand.
+  * One matmul per axis against a dense (sumR, C) line matrix;
     because the matrix is dense across levels, each output channel is
     a learned piecewise-linear function with knots from EVERY level
     (free cross-scale mixing — masking it back to block-diagonal would
@@ -25,7 +20,7 @@ with work the TPU is built for:
   * Tiny shared sigma/color heads (models/hashgrid.py
     init/apply_tiny_heads), same contract as every other family.
 
-Zero gathers anywhere: encode FLOPs ~ 3 * N * sumR * C * 2, all MXU.
+Zero gathers anywhere: encode FLOPs ~ 3 * N * sumR * C * 2, all matmul.
 
 The reference has a single fixed MLP (src/model.rs:45-93); SURVEY §2.11
 maps it to this framework's model families.
@@ -95,7 +90,7 @@ def hat_weights(
 
     Column j is max(0, 1 - |u * res[j] - knot[j]|): exactly the two
     surrounding knots of each level are nonzero — linear interpolation
-    weights for every level at once. f32 VPU arithmetic (bf16 knot
+    weights for every level at once. f32 arithmetic (bf16 knot
     positions at R=512 would quantize the cell coordinate); the caller
     casts AFTER for the matmul."""
     res_c, knot_c = knot_constants(cfg)
@@ -108,8 +103,8 @@ def factored_encode(
 ) -> jnp.ndarray:
     """(..., 3) world points -> (..., C) CP-product features.
 
-    All tensors are (N, sumR) / (N, C) — no sub-128 minor dims
-    materialize (CLAUDE.md lane-padding hazard)."""
+    All tensors are (N, sumR) / (N, C) — no narrow minor dims
+    materialize."""
     lead = points.shape[:-1]
     p = points.reshape(-1, 3)
     u = jnp.clip((p + cfg.fac_aabb) / (2.0 * cfg.fac_aabb), 0.0, 1.0)
@@ -131,10 +126,5 @@ def apply_factored(
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Same contract as mlp.apply_nerf / hashgrid.apply_hashgrid:
     (sigma_raw (...,), rgb_raw (..., 3)) before activations."""
-    if cfg.fac_fused:
-        from ..kernels.fused_factored import fused_factored_encode
-
-        enc = fused_factored_encode(params["lines"], points, cfg, dtype)
-    else:
-        enc = factored_encode(params["lines"], points, cfg, dtype)
+    enc = factored_encode(params["lines"], points, cfg, dtype)
     return apply_tiny_heads(params, enc, viewdirs, cfg, dtype)

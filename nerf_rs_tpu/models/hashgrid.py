@@ -3,7 +3,7 @@ MLPs (arXiv 2201.05989), as a second architecture family next to the
 paper NeRF (models/mlp.py). The reference has a single fixed MLP
 (src/model.rs:45-93); this is the modern time-to-quality architecture.
 
-TPU-first design notes:
+Design notes:
   * All level resolutions, table offsets, and the dense-vs-hashed
     decision per level are STATIC (computed from the frozen ModelConfig
     at trace time) — the jitted program contains no data-dependent
@@ -14,8 +14,7 @@ TPU-first design notes:
   * Corner weights/indices are built in (N, L, 8[, 3]) layouts and
     contracted with an einsum; the tiny (N, L, 8, F=2) gather result is
     consumed immediately by the reduction, so XLA keeps it in the fused
-    loop rather than materializing a padded HBM tensor (CLAUDE.md's
-    3-wide-minor-dim warning applies to *stored* tensors).
+    loop rather than materializing it in device memory.
   * Coarse levels where a dense grid fits the table ((N_l+1)^3 <= T)
     index directly (collision-free), like the CUDA original; finer
     levels use the 3-prime spatial hash with uint32 wraparound.
@@ -139,21 +138,12 @@ def hash_encode(
     level; vertex features come from a dense index when the level's
     grid fits the table, else the spatial hash.
 
-    TPU layout: every tensor this builds is (N, K=L*8*F) — minor dim
-    256 at the defaults — with all per-(level, corner, feature)
-    structure folded into constant (K,) row vectors. The original
-    row-gather form ((N, L*8, F=2) gather result, (N, L, 8[, 3])
-    weight/index intermediates) OOMed 16G HBM at N=512k and ran
-    68 ms fwd / 705 ms grad at N=64k: XLA pads tiny minor dims to 128
-    lanes when it materializes them (CLAUDE.md — a (N, L, 8, F) i32
-    index fusion output alone was a 34 GB allocation). Here the flat
-    scalar-gather indices, trilinear weights, and gathered values all
-    live at (N, K); the corner reduction is one constant 0/1 (K, L*F)
-    matmul on the MXU. Measured (benchmarks/ab_hash_encode.py, v5e,
-    N=64k): 1.8x faster end-to-end than the row-gather form and
-    OOM-free. Still gather-bound: TPU HBM has no fine-grained random
-    access, which is why the factored family (models/factored.py) is
-    the fast-field default on this hardware.
+    Layout: every tensor this builds is (N, K=L*8*F) — minor dim 256
+    at the defaults — with all per-(level, corner, feature) structure
+    folded into constant (K,) row vectors, so no narrow minor dims
+    materialize. The flat scalar-gather indices, trilinear weights, and
+    gathered values all live at (N, K); the corner reduction is one
+    constant 0/1 (K, L*F) matmul.
     """
     L, F = cfg.hash_levels, cfg.hash_features
     T = 1 << cfg.hash_table_log2
@@ -227,10 +217,9 @@ def brick_encode(
 ) -> jnp.ndarray:
     """Brick-layout multiresolution hash encoding: (..., 3) -> (..., L*F).
 
-    TPU-native redesign of the Instant-NGP table (round 4): the
-    hardware's minimum random-access granule is one 128-lane HBM row
-    (512 B f32 — see kernels/gather_rows.py), which the flat layout
-    wastes 64x by gathering 8 B corner pairs. Here each table entry is
+    A redesign of the Instant-NGP table around contiguous row
+    gathers: the flat layout gathers 8 B corner pairs, while here each
+    table entry is
     a 4^3-vertex brick covering 3^3 cells of the level grid, stored as
     one (128,) row (64 vertices x F=2). Any sample's 8 trilinear
     corners lie inside ONE brick (vertex v in [0, r], brick v//3,
@@ -249,7 +238,7 @@ def brick_encode(
     L, F = cfg.hash_levels, cfg.hash_features
     if F != 2:
         raise ValueError("brick layout packs 64 vertices x F into one "
-                         f"128-lane row: needs hash_features=2, got {F}")
+                         f"128-wide row: needs hash_features=2, got {F}")
     Tb = brick_table_entries(cfg)
     lead = points.shape[:-1]
     p = points.reshape(-1, 3)
@@ -297,8 +286,8 @@ def brick_encode(
 
     # two weighted lane reductions (one per feature): M_f = sum_c w_c *
     # onehot(lane_c*F + f) is built elementwise and consumed by the
-    # same pass over `rows` — no (N, L, 8, ...) tiny-minor intermediates
-    # (CLAUDE.md lane-padding rule), everything stays (N*L, 128)
+    # same pass over `rows` — no (N, L, 8, ...) tiny-minor intermediates,
+    # everything stays (N*L, 128)
     iota = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
     ofs = [o[..., a].reshape(-1) for a in range(3)]  # each (N*L,)
     frs = [fr[..., a].reshape(-1) for a in range(3)]

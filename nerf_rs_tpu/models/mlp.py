@@ -12,8 +12,7 @@ Two architectures:
     4 sigmoid.
 
 No NN framework: ~600k params is a dict of (w, b) leaves and a chain of
-matmuls — exactly what XLA wants, and what the fused Pallas kernel
-consumes directly (kernels/fused_render.py).
+matmuls — exactly what XLA wants.
 
 Weights are He-uniform initialized (fan_in), matching libtorch's
 nn::Linear default so compat-mode convergence behavior is comparable.
@@ -41,7 +40,7 @@ def _init_linear(key: jax.Array, in_dim: int, out_dim: int) -> Dict[str, jnp.nda
     activations shrink layer-by-layer until the sigma head's bias
     dominates — if it lands negative, relu(sigma)=0 for EVERY point,
     all compositing weights are 0, and the whole network is dead at
-    init (zero gradients; observed on TPU). Zero biases + He weights
+    init (zero gradients). Zero biases + He weights
     keep sigma_raw zero-mean across points so gradient flows.
     """
     kw, _ = jax.random.split(key)
@@ -69,15 +68,12 @@ def dense(x: jnp.ndarray, layer: Dict[str, jnp.ndarray], dtype=None) -> jnp.ndar
     """y = x @ w + b.
 
     With dtype=bf16 the ENTIRE layer — inputs, weights, output, bias —
-    runs in bf16 (master weights stay f32 in the param tree). This is
-    the dominant TPU perf lever, measured on v5e:
-      * f32 inter-layer activations make the trunk HBM-bound
-        (~11x slower than bf16-resident chains);
-      * f32 matmul OUTPUTS poison the backward — the cotangents then
-        flow in f32 through every dW/dx matmul (17ms -> 12ms fwd+bwd
-        for the 8x256 trunk by keeping cotangents bf16).
-    The MXU still accumulates bf16 products in f32 internally; only the
-    stored result is rounded.
+    runs in bf16 (master weights stay f32 in the param tree):
+      * bf16 inter-layer activations halve the trunk's memory traffic;
+      * bf16 matmul OUTPUTS keep the backward's cotangents in bf16
+        through every dW/dx matmul.
+    The tensor cores still accumulate bf16 products in f32 internally;
+    only the stored result is rounded.
     """
     w, b = layer["w"], layer["b"]
     if dtype is not None and dtype != jnp.float32:
@@ -172,7 +168,7 @@ def apply_nerf(
       points: (..., 3) world-space sample points.
       viewdirs: (..., 3) unit view directions (broadcastable to points),
         or None when cfg.use_viewdirs is False.
-      dtype: matmul dtype (jnp.bfloat16 for MXU mixed precision).
+      dtype: matmul dtype (jnp.bfloat16 for mixed precision).
       noise_std/noise_key: paper-appendix regularizer — Gaussian noise
         added to RAW sigma BEFORE the activation (the paper perturbs
         pre-activation density; adding it post-relu changes semantics).

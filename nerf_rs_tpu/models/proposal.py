@@ -3,11 +3,10 @@ only job is to predict WHERE density is, so the expensive main MLP
 spends its per-ray sample budget there.
 
 The reference (and the original NeRF paper) runs the FULL radiance MLP
-as the coarse pass — on v5e that is 8.65 ms of the 24.2 ms fused
-hierarchical step for work whose rgb output is discarded at eval and
+as the coarse pass — work whose rgb output is discarded at eval and
 whose only training signal is a duplicated photometric loss. A 4x64
-density-only proposal evaluates the same sample count in well under a
-millisecond and is trained to bound the main network's weight
+density-only proposal evaluates the same sample count at a small
+fraction of the cost and is trained to bound the main network's weight
 histogram instead (ops/proposal.interlevel_loss).
 
 Pure pytree params + apply fn, same conventions as models/mlp.py

@@ -10,9 +10,8 @@
 //
 // Build: nerf_rs_tpu/native/build.py (g++ -O3 -shared), or `make -C
 // nerf_rs_tpu/native`. Only the HOST pipeline lives here — device
-// compute is XLA/Pallas (that is the TPU-native design; this file
-// exists for scenes whose pixel store exceeds HBM, where the host must
-// feed shards).
+// compute is XLA; this file exists for scenes whose pixel store
+// exceeds device memory, where the host must feed shards.
 
 #include <cstdint>
 #include <cstring>

@@ -20,7 +20,7 @@ unbounded mode. Pairs with disparity-linear sampling
 also spent 1/t-proportionally — the two halves of the mip-NeRF 360
 unbounded recipe.
 
-TPU notes: pure elementwise VPU work on (..., 3) tensors that are
+Notes: pure elementwise work on (..., 3) tensors that are
 consumed immediately by the encoder matmuls, so XLA fuses the whole
 thing; no gathers, no data-dependent shapes. The Gaussian variant uses
 the closed-form Jacobian below rather than autodiff jvp's (3 extra

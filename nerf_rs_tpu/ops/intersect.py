@@ -8,7 +8,7 @@ src/ray_sampling.rs:301-359), and the (commented-out)
 measure_view_invariance metric (src/main.rs:119-248) — the mean
 |sigma_1 - sigma_2| over points seen from two views.
 
-TPU-native addition: ``density_consistency`` needs no intersection
+Addition: ``density_consistency`` needs no intersection
 math at all — evaluate sigma at IDENTICAL world points generated from
 two view batches and compare (SURVEY §2.21 note). The intersection
 variant is kept for diagnostic parity; both are vectorized.

@@ -31,10 +31,10 @@ def _filter2(img: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
         a = jnp.moveaxis(a, axis, -1)  # (..., N)
         shape = a.shape
         flat = a.reshape(-1, 1, shape[-1])  # (B, 1, N) NCW
-        # HIGHEST precision is load-bearing: on TPU the conv defaults
-        # to bf16, and the variance terms E[x^2] - E[x]^2 then cancel
-        # catastrophically (bf16 eps ~8e-3 vs C2 = 9e-4) — measured
-        # 0.841 vs the true 0.9991 on a white-background eval frame.
+        # HIGHEST precision is load-bearing: on the GPU a float32 conv
+        # otherwise runs in TF32 (10-bit mantissa, eps ~1e-3), and the
+        # variance terms E[x^2] - E[x]^2 then cancel catastrophically
+        # against C2 = 9e-4.
         out = jax.lax.conv_general_dilated(
             flat, kernel.reshape(1, 1, -1), window_strides=(1,),
             padding="VALID", precision=jax.lax.Precision.HIGHEST,

@@ -4,8 +4,8 @@ The reference samples uniformly along every ray (src/ray_sampling.rs:
 96-142) and so spends most of its MLP evaluations in empty space. This
 module maintains a coarse density grid over the scene AABB and uses it
 to CONCENTRATE the (static-shape) per-ray sample budget in occupied
-cells — the TPU-native form of "skipping": instead of compacting a
-variable number of samples (dynamic shapes XLA can't tile), the same S
+cells — "skipping" with static shapes: instead of compacting a
+variable number of samples (dynamic shapes XLA can't compile), the same S
 samples are drawn from a per-ray piecewise-constant PDF that is ~zero
 in empty bins. Equal quality at a fraction of the samples/ray, which is
 a direct step-time win (the MLP is the cost; samples are the axis).
@@ -15,9 +15,8 @@ living in TrainState (checkpointed with it). Updates are periodic and
 cheap: evaluate sigma at jittered cell centers with the current params
 (one jitted call, ~= one extra training step every occ_update_steps).
 
-TPU layout notes: bin lookups run as three (N, B) coordinate arrays +
-one flat gather — never an (N, B, 3) points tensor (XLA pads 3-wide
-minor dims to 128 lanes; see CLAUDE.md). All shapes static.
+Layout notes: bin lookups run as three (N, B) coordinate arrays +
+one flat gather — never an (N, B, 3) points tensor. All shapes static.
 """
 
 from __future__ import annotations
@@ -67,8 +66,7 @@ def update_grid(
     )
     # viewdirs don't affect sigma; a fixed direction feeds the (unused)
     # rgb head so apply_nerf's signature is satisfied. 3-D activation
-    # shape for the same conv-form layouts as the training path (flat
-    # (M, 3) minor dims pay the 128-lane padding tax; CLAUDE.md).
+    # shape, the same layout as the training path.
     pts = pts.reshape(res * res, res, 3)
     vd = jnp.zeros_like(pts).at[..., 2].set(1.0)
     sigma, _ = apply_nerf(params, pts, vd, model_cfg, dtype)

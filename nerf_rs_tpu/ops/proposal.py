@@ -9,7 +9,7 @@ points. The proposal is trained with the interlevel bound loss: its
 weight histogram must upper-bound the main network's, measured on
 every main-sample interval.
 
-TPU notes: the interval-overlap "outer" measure is one broadcast
+Notes: the interval-overlap "outer" measure is one broadcast
 compare + masked sum over a (rays, F, P) mask — the same gather-free
 pattern as sample_pdf; no searchsorted, no sort, no dynamic shapes.
 """

@@ -1,6 +1,6 @@
 """Camera-ray generation, vectorized and jit-friendly.
 
-TPU-native redesign of the reference's scalar CPU geometry
+Vectorized redesign of the reference's scalar CPU geometry
 (src/ray_sampling.rs:7-178): instead of rotating every sample point by
 yaw-then-pitch (the TODO the reference itself flags at
 src/ray_sampling.rs:95,143), we rotate the camera once — build a 3x3
@@ -69,8 +69,8 @@ def pose_from_yaw_pitch(yaw: jnp.ndarray, pitch: jnp.ndarray) -> jnp.ndarray:
     The reference rotates sample points yaw-then-pitch
     (src/ray_sampling.rs:130-131); composing once gives
     R = Rx(pitch) @ Ry(yaw). Batched over leading dims. Full f32
-    precision — tiny 3x3 composition, and bf16-default matmul would
-    denormalize the rotation.
+    precision — tiny 3x3 composition, and the GPU's default float32
+    matmul (TF32, 10-bit mantissa) would denormalize the rotation.
     """
     return jnp.einsum(
         "...ij,...jk->...ik",

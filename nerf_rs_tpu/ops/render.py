@@ -60,7 +60,7 @@ def composite(
 
     T_i = exp(-sum_{j<i} sigma_j delta_j) computed as one exclusive
     cumsum (the reference re-reduces the prefix per sample — O(S^2),
-    src/model.rs:221-241; this is the O(S) TPU-native form, SURVEY §7
+    src/model.rs:221-241; this is the O(S) form, SURVEY §7
     step 5).
     """
     sd = sigma * deltas
@@ -106,8 +106,7 @@ def distortion_loss(
     with cw/cwm the inclusive cumsums of w and w*s, W/M their totals.
 
     Sample positions are treated as values (stop-gradient), matching
-    mip-NeRF 360 and the fused-kernel implementation — only the
-    weights receive gradient.
+    mip-NeRF 360 — only the weights receive gradient.
 
     ``deltas`` (the interval/IPE path): ``ts`` are interval MIDPOINTS
     and ``deltas`` exact interval lengths — the s-space lengths are
@@ -168,30 +167,6 @@ def compat_predict(
     return out.rgb, sigma
 
 
-def train_fused_supported(model_cfg: ModelConfig) -> bool:
-    """Architectures the whole-ray TRAIN kernel covers — the paper
-    family including IPE (the kernel builds conical-Gaussian moments
-    and the damped integrated encoding in-register), mip-NeRF 360
-    scene contraction (in-register elementwise transform before the
-    encoder — kernels/fused_render._contract_points/_contract_gaussian)
-    and both density activations."""
-    return (
-        not model_cfg.compat
-        and model_cfg.arch == "nerf"
-        and model_cfg.use_viewdirs
-        and model_cfg.rgb_activation == "sigmoid"
-        and model_cfg.include_input_in_enc
-        and model_cfg.sigma_activation in ("relu", "softplus")
-    )
-
-
-def fused_supported(model_cfg: ModelConfig) -> bool:
-    """The fused RENDER kernel covers the same family as the train
-    kernel — including IPE since the in-register interval expansion
-    landed in kernels/fused_ray.py too."""
-    return train_fused_supported(model_cfg)
-
-
 def _render_rays_ipe(
     params: Params,
     flat_o: jnp.ndarray,
@@ -205,9 +180,6 @@ def _render_rays_ipe(
     n_rays_shape,
     fine_params: Optional[Params] = None,
     radii: Optional[jnp.ndarray] = None,
-    use_fused: bool = False,
-    packed=None,
-    fine_packed=None,
     grid=None,
 ):
     """mip-NeRF rendering (arXiv 2103.13415): stratified INTERVAL edges
@@ -233,57 +205,8 @@ def _render_rays_ipe(
               else radii[:, None])
     viewdirs = flat_d / jnp.linalg.norm(flat_d, axis=-1, keepdims=True)
     noise_std = render_cfg.raw_noise_std if rand else 0.0
-    # fused whole-ray kernel path (forward only, no sigma noise): the
-    # interval moments + damped encoding live in-register in
-    # kernels/fused_ray.py — per-sample Gaussians never touch HBM
-    use_fused = use_fused and noise_std == 0.0
-    radii_flat = (jnp.full((n,), sampling.pixel_radius(camera),
-                           jnp.float32)
-                  if radii is None else radii)
 
-    def fused_ipe_pass(pass_params, edges, pass_packed) -> RenderOut:
-        from ..kernels.fused_ray import fused_ray_render
-        from ..kernels.fused_render import default_is_tpu, pack_weights
-
-        pk = pass_packed if pass_packed is not None else pack_weights(
-            pass_params, model_cfg)
-        t_mids = 0.5 * (edges[..., :-1] + edges[..., 1:])
-        deltas = edges[..., 1:] - edges[..., :-1]
-        S_p = t_mids.shape[-1]
-        R = max(8, min(128, (128 * 64) // max(S_p, 1)))
-        R = 1 << (R.bit_length() - 1)
-        # merged-interval passes: cap rows <= 4096 for compile time
-        # (train/step._whole_ray_pass's probed knee — same kernel family)
-        if S_p > 128:
-            while R > 8 and R * S_p > 4096:
-                R //= 2
-        npad = ((n + R - 1) // R) * R
-        o_p, d_p, vd_p = flat_o, flat_d, viewdirs
-        ts_p, dl_p, r_p = t_mids, deltas, radii_flat
-        if npad != n:
-            pad = lambda a, fill: jnp.concatenate(
-                [a, jnp.full((npad - n,) + a.shape[1:], fill, a.dtype)])
-            o_p, d_p, vd_p = pad(flat_o, 0.0), pad(flat_d, 1.0), pad(
-                viewdirs, 1.0)
-            ts_p, dl_p = pad(t_mids, 1.0), pad(deltas, 1e-3)
-            r_p = pad(radii_flat, 1e-3)
-        interpret = (render_cfg.kernel_interpret
-                     if render_cfg.kernel_interpret is not None
-                     else not default_is_tpu())
-        rgb, acc, depth_v, w, sig = fused_ray_render(
-            pk, o_p, d_p, vd_p, ts_p, dl_p, model_cfg, S_p,
-            rays_per_block=R, interpret=interpret, radii=r_p,
-        )
-        rgb, acc, depth_v = rgb[:n], acc[:n], depth_v[:n]
-        w, sig = w[:n], sig[:n]
-        if render_cfg.white_background:
-            rgb = rgb + (1.0 - acc[..., None])
-        return RenderOut(rgb=rgb, weights=w, sigma=sig, depth=depth_v,
-                         acc=acc, ts=t_mids, deltas=deltas)
-
-    def ipe_pass(pass_params, edges, noise_key, pass_packed=None):
-        if use_fused:
-            return fused_ipe_pass(pass_params, edges, pass_packed)
+    def ipe_pass(pass_params, edges, noise_key):
         mean, var, t_mids, deltas = sampling.conical_gaussians(
             flat_o, flat_d, edges, base_r
         )
@@ -307,8 +230,7 @@ def _render_rays_ipe(
             k_coarse, n, S + 1, camera.near, camera.far, rand,
             space=render_cfg.sampling_space,
         )
-    coarse = ipe_pass(params, edges, jax.random.fold_in(k_coarse, 1),
-                      pass_packed=packed)
+    coarse = ipe_pass(params, edges, jax.random.fold_in(k_coarse, 1))
 
     fine = None
     if render_cfg.num_fine_samples > 0:
@@ -326,8 +248,6 @@ def _render_rays_ipe(
         fine = ipe_pass(
             fine_params if fine_params is not None else params,
             fine_edges, jax.random.fold_in(k_fine, 1),
-            pass_packed=(fine_packed if fine_params is not None
-                         else packed),
         )
 
     def unflatten(out: RenderOut) -> RenderOut:
@@ -356,9 +276,6 @@ def render_rays(
     fine_params: Optional[Params] = None,
     randomized: Optional[bool] = None,
     dtype=None,
-    use_fused: bool = False,
-    packed=None,
-    fine_packed=None,
     grid: Optional[jnp.ndarray] = None,
     prop_params: Optional[Params] = None,
     prop_cfg=None,
@@ -370,15 +287,11 @@ def render_rays(
     Rays of any leading shape (N,) or (H, W). Returns (coarse, fine)
     RenderOuts; fine is None when num_fine_samples == 0.
 
-    use_fused routes the field evaluation through the fused Pallas
-    kernel (kernels/fused_render.py) — inference only (no VJP).
-
     prop_params/prop_cfg (ops/proposal.py): the main pass's
     num_samples points are proposal-guided instead of uniform; the
     interlevel training loss lives in train/step.py — here the proposal
     only picks where to sample.
     """
-    use_fused = use_fused and fused_supported(model_cfg)
     rand = render_cfg.randomized if randomized is None else randomized
     n_rays_shape = origins.shape[:-1]
     flat_o = origins.reshape(-1, 3)
@@ -391,7 +304,6 @@ def render_rays(
             params, flat_o, flat_d, key, model_cfg, render_cfg, camera,
             rand, dtype, n_rays_shape, fine_params=fine_params,
             radii=None if radii is None else radii.reshape(-1),
-            use_fused=use_fused, packed=packed, fine_packed=fine_packed,
             grid=grid,
         )
 
@@ -405,7 +317,7 @@ def render_rays(
         )
     elif grid is not None and not render_cfg.compat_sampling:
         # occupancy-guided sampling: the budget concentrates in occupied
-        # grid cells (ops/occupancy.py; empty-space skipping, TPU form)
+        # grid cells (ops/occupancy.py; empty-space skipping)
         from . import occupancy
 
         ts = occupancy.occupancy_ts(
@@ -422,45 +334,6 @@ def render_rays(
 
     viewdirs = flat_d / jnp.linalg.norm(flat_d, axis=-1, keepdims=True)
 
-    def fused_ray_pass(pass_params: Params, ts_pass: jnp.ndarray,
-                       pass_packed) -> RenderOut:
-        """Whole-ray Pallas path (kernels/fused_ray.py): expansion, PE,
-        MLP, and compositing all in-kernel; per-sample tensors never
-        touch HBM."""
-        from ..kernels.fused_ray import fused_ray_render
-        from ..kernels.fused_render import default_is_tpu, pack_weights
-
-        pk = pass_packed if pass_packed is not None else pack_weights(
-            pass_params, model_cfg
-        )
-        deltas = sampling.deltas_from_ts(ts_pass, camera.far)
-        S = ts_pass.shape[-1]
-        # ray block sized to the train kernel's tuned R*S = 128*64
-        # VMEM operating point (fused_train.py sweep)
-        R = max(8, min(128, (128 * 64) // max(S, 1)))
-        R = 1 << (R.bit_length() - 1)
-        npad = ((n + R - 1) // R) * R
-        o_p, d_p, vd_p, ts_p, dl_p = flat_o, flat_d, viewdirs, ts_pass, deltas
-        if npad != n:
-            pad = lambda a, fill: jnp.concatenate(
-                [a, jnp.full((npad - n,) + a.shape[1:], fill, a.dtype)]
-            )
-            o_p, d_p, vd_p = pad(flat_o, 0.0), pad(flat_d, 1.0), pad(viewdirs, 1.0)
-            ts_p, dl_p = pad(ts_pass, 1.0), pad(deltas, 0.0)
-        interpret = (render_cfg.kernel_interpret
-                     if render_cfg.kernel_interpret is not None
-                     else not default_is_tpu())
-        rgb, acc, depth_v, w, sig = fused_ray_render(
-            pk, o_p, d_p, vd_p, ts_p, dl_p, model_cfg, S,
-            rays_per_block=R, interpret=interpret,
-        )
-        rgb, acc, depth_v = rgb[:n], acc[:n], depth_v[:n]
-        w, sig = w[:n], sig[:n]
-        if render_cfg.white_background:
-            rgb = rgb + (1.0 - acc[..., None])
-        return RenderOut(rgb=rgb, weights=w, sigma=sig, depth=depth_v,
-                         acc=acc, ts=ts_pass)
-
     # paper-appendix sigma regularizer: noise is added to RAW sigma
     # inside apply_nerf (pre-activation, as the paper specifies) with
     # a DISTINCT key per pass (coarse/fine noise must be independent)
@@ -470,29 +343,18 @@ def render_rays(
         else 0.0
     )
 
-    def field_eval(pass_params: Params, pts: jnp.ndarray, noise_key,
-                   pass_packed) -> Tuple[jnp.ndarray, jnp.ndarray]:
-        """Per-sample (sigma, rgb) via the jnp model (XLA path)."""
-        # keep the (rays, samples, 3) shape through the MLP: XLA
-        # lowers the dense layers to convs whose layouts measure
-        # FASTER end-to-end than a flattened 2-D formulation (the
-        # flat (N*S, 3) tensors pay a 42x lane-padding tax; A/B'd
-        # on-chip: 14.2 vs 16.9 ms/step)
+    def field_eval(pass_params: Params, pts: jnp.ndarray,
+                   noise_key) -> Tuple[jnp.ndarray, jnp.ndarray]:
+        """Per-sample (sigma, rgb) of the field."""
         return apply_nerf(
             pass_params, pts, viewdirs[..., None, :], model_cfg, dtype,
             noise_std=noise_std, noise_key=noise_key,
         )
 
     def run_pass(pass_params: Params, ts_pass: jnp.ndarray,
-                 pass_packed=None, noise_key=None) -> RenderOut:
-        if (
-            use_fused
-            and not render_cfg.compat_density_color
-            and noise_std == 0.0
-        ):
-            return fused_ray_pass(pass_params, ts_pass, pass_packed)
+                 noise_key=None) -> RenderOut:
         pts = sampling.points_from_ts(flat_o, flat_d, ts_pass)
-        sigma, rgb = field_eval(pass_params, pts, noise_key, pass_packed)
+        sigma, rgb = field_eval(pass_params, pts, noise_key)
         deltas = sampling.deltas_from_ts(ts_pass, camera.far)
         if render_cfg.compat_density_color:
             colors = jnp.stack([sigma, sigma, sigma], axis=-1)
@@ -516,15 +378,13 @@ def render_rays(
         and render_cfg.num_fine_samples > 0
         and fine_params is None
         and not render_cfg.compat_density_color
-        and not use_fused  # the whole-ray kernel returns no
-        # per-sample rgb to cache
     )
 
     fine = None
     if shared_fast:
         pts_c = sampling.points_from_ts(flat_o, flat_d, ts)
         sigma_c, rgb_c = field_eval(
-            params, pts_c, jax.random.fold_in(k_coarse, 1), packed
+            params, pts_c, jax.random.fold_in(k_coarse, 1)
         )
         coarse = composite(
             sigma_c, rgb_c[..., :3], sampling.deltas_from_ts(ts, camera.far),
@@ -537,14 +397,12 @@ def render_rays(
         )
         pts_f = sampling.points_from_ts(flat_o, flat_d, fine_ts)
         sigma_f, rgb_f = field_eval(
-            params, pts_f, jax.random.fold_in(k_fine, 1), packed
+            params, pts_f, jax.random.fold_in(k_fine, 1)
         )
         # merge by ONE multi-operand lax.sort carrying sigma + the rgb
-        # channels as separate (N, 2S) scalar payloads — a
-        # take_along_axis gather of an (N, 2S, 3) color tensor pays the
-        # 42x lane-padding tax fwd and a scatter bwd (measured 80 vs
-        # 56 ms/step); channel-split payload sorting keeps every operand
-        # 2-D and gather-free
+        # channels as separate (N, 2S) scalar payloads: every operand
+        # stays 2-D and gather-free (a take_along_axis gather of an
+        # (N, 2S, 3) color tensor costs a scatter in the backward)
         cat = lambda a, b: jnp.concatenate([a, b], axis=-1)
         ts_s, sigma_u, r_u, g_u, b_u = jax.lax.sort(
             (cat(ts, fine_ts), cat(sigma_c, sigma_f),
@@ -568,7 +426,7 @@ def render_rays(
                          depth=jnp.sum(w * ts_s, axis=-1), acc=acc_u,
                          ts=ts_s)
     else:
-        coarse = run_pass(params, ts, packed,
+        coarse = run_pass(params, ts,
                           noise_key=jax.random.fold_in(k_coarse, 1))
         if render_cfg.num_fine_samples > 0:
             mids = 0.5 * (ts[..., 1:] + ts[..., :-1])
@@ -588,7 +446,6 @@ def render_rays(
             fine = run_pass(
                 fine_params if fine_params is not None else params,
                 all_ts,
-                fine_packed if fine_params is not None else packed,
                 noise_key=jax.random.fold_in(k_fine, 1),
             )
 

@@ -1,6 +1,6 @@
 """Point sampling along rays: stratified, compat, and hierarchical.
 
-TPU-native replacement for the reference's scalar per-ray sampling loop
+Vectorized replacement for the reference's scalar per-ray sampling loop
 (src/ray_sampling.rs:96-142): everything is generated on-device from
 explicit PRNG keys (the reference uses unseeded rand::random,
 src/ray_sampling.rs:110), batched over rays, with static shapes so the
@@ -180,11 +180,9 @@ def sample_pdf(
     weights. Returns (..., num_samples) new ts, SORTED per ray — the
     randomized draw is stratified in CDF space (one jittered sample per
     equal-mass bin), so u is monotone per ray and the CDF inverse
-    preserves order with no sort op. That matters twice on TPU: XLA's
-    sort of a (4096, 128) batch measured ~30 ms — it DOMINATED the
-    hierarchical train step (kernels: 8.8+16.5 ms) — and stratified
-    draws are lower-variance than iid uniforms (the paper's eq. 2
-    argument, applied in CDF space).
+    preserves order with no sort op; stratified draws are also
+    lower-variance than iid uniforms (the paper's eq. 2 argument,
+    applied in CDF space).
 
     The reference has no hierarchical sampling; this implements the
     capability named by BASELINE.json config 3.
@@ -204,11 +202,9 @@ def sample_pdf(
         u = jnp.linspace(0.0, 1.0 - 1e-6, num_samples)
         u = jnp.broadcast_to(u, shape)
 
-    # interval location WITHOUT gathers: take_along_axis lowers to
-    # per-row dynamic gathers the TPU serializes; instead one broadcast
-    # compare (pure vector work — a vmapped searchsorted's scalar-ish
-    # binary search measured 15x slower still) and masked max/min
-    # reductions pick the bracketing cdf/bin entries directly.
+    # interval location WITHOUT gathers: one broadcast compare and
+    # masked max/min reductions pick the bracketing cdf/bin entries
+    # directly (pure vector work, no per-row dynamic gathers).
     mask = u[..., :, None] >= cdf[..., None, :]  # (..., F, B+1)
 
     def below(x):  # last True position's value (x monotone, (..., B+1))

@@ -1,10 +1,10 @@
-"""Multi-host / multi-slice initialization.
+"""Multi-host initialization.
 
-The reference is one process on one GPU (SURVEY §2.12-bis). At pod
-scale the standard JAX recipe applies: every host process calls
-jax.distributed.initialize, after which jax.devices() spans the slice
-and the same Mesh/shard_map code runs unchanged with collectives over
-ICI (intra-slice) and DCN (multi-slice). Failure recovery is
+The reference is one process on one GPU (SURVEY §2.12-bis). Across
+hosts the standard JAX recipe applies: every host process calls
+jax.distributed.initialize, after which jax.devices() spans every
+host's devices and the same Mesh/shard_map code runs unchanged.
+Failure recovery is
 restart-and-resume: re-init, reload the latest checkpoint
 (train/checkpoint.latest_checkpoint) — no in-band elasticity is needed
 at this model scale (SURVEY §5.3).
@@ -26,9 +26,9 @@ def initialize(
     """Initialize jax.distributed when running multi-process.
 
     No-ops (returns False) in single-process runs so the same entry
-    point works on one chip, one host (v5e-8), or a pod. Arguments
-    default to the standard env vars (JAX auto-detects on TPU VMs; the
-    explicit env fallbacks support generic clusters).
+    point works on one device, one host, or several hosts. Arguments
+    default to the NERF_COORDINATOR / NERF_NUM_PROCESSES /
+    NERF_PROCESS_ID env vars.
     """
     num_processes = num_processes or int(os.environ.get("NERF_NUM_PROCESSES", "1"))
     if num_processes <= 1 and coordinator_address is None:

@@ -2,10 +2,10 @@
 
 shard_map-wrapped versions of the single-device train/eval cores
 (train/step.py): each shard computes grads on its local slice of the
-ray batch, grads are psum-averaged over ICI, and the (replicated)
+ray batch, grads are psum-averaged over the mesh, and the (replicated)
 optimizer update is applied identically everywhere — the classic DP
 recipe named in SURVEY §5.8. Per-shard PRNG keys are folded with the
-shard index so stratified samples differ across chips.
+shard index so stratified samples differ across devices.
 
 Full-frame novel-view rendering shards pixel tiles along the same axis
 (render_sharded); XLA all-gathers the frame on the way out.
@@ -33,15 +33,13 @@ def make_dp_train_step(cfg: Config, mesh: Mesh, dataset=None,
     per-ray batch sampling happens INSIDE the step, per shard, and the
     signature is (state, images, pose_data, key) -> (state, aux) —
     fusing sampling into the step removes two host dispatches per
-    iteration whose pipeline bubbles cost ~4 ms once the fused kernel
-    brought the step under 10 ms (measured 14.4 -> ~9 ms on v5e).
-    aux then carries "batch_idx" (sharded) for diagnostics.
+    iteration. aux then carries "batch_idx" (sharded) for diagnostics.
 
     ``shard_store``: the dataset's images/pose_data arrive sharded on
     the VIEW axis over the data mesh (DataConfig.shard_pixel_store) —
     each shard samples rays only from its local views (equal-size
-    slices + iid draws == union sampling) and no view data moves over
-    ICI. batch_idx stays GLOBAL: local view ids are offset by the
+    slices + iid draws == union sampling) and no view data moves
+    between devices. batch_idx stays GLOBAL: local view ids are offset by the
     shard's view base, so error stores/diagnostics see one namespace.
 
     state is replicated. Grad psum happens inside shard_map; Adam runs
@@ -51,10 +49,10 @@ def make_dp_train_step(cfg: Config, mesh: Mesh, dataset=None,
     opt = step_mod.make_optimizer(cfg)
     nshards = num_shards(mesh)
     acc = cfg.train.accumulation_steps
-    # On a 1-device mesh the shard_map wrapper costs ~1.4 ms/step of
-    # dispatch overhead (measured v5e: plain step 8.6 ms -> +shard_map
-    # 10.0); collapse to the plain jitted step. Numerics are identical:
-    # axis_index == 0 and pmean over one shard is the identity.
+    # On a 1-device mesh the shard_map wrapper only adds dispatch
+    # overhead; collapse to the plain jitted step. Numerics are
+    # identical: axis_index == 0 and pmean over one shard is the
+    # identity.
     single = nshards == 1
 
     def _axis_index():
@@ -75,9 +73,7 @@ def make_dp_train_step(cfg: Config, mesh: Mesh, dataset=None,
         # dataset.num_views is the PROCESS-local view count; per-shard
         # sampling sees the full store when replicated, or its
         # global/nshards view block when the store is view-sharded.
-        # Global count read off the (global) array shape rather than
-        # num_views * jax.process_count() — process_count() touches the
-        # default backend, which the hermetic dryrun poisons.
+        # Global count read off the (global) array shape.
         if shard_store and not single:
             global_views = dataset.images.shape[0]
             assert global_views % nshards == 0, (global_views, nshards)
@@ -91,9 +87,6 @@ def make_dp_train_step(cfg: Config, mesh: Mesh, dataset=None,
     def _local_grads(trainable, batch: Batch, key: jax.Array, grid=None,
                      step=None):
         """Per-shard (possibly micro-batched) gradient computation."""
-        if step_mod.whole_ray_supported(cfg):
-            return step_mod.whole_ray_grads(trainable, batch, key, cfg, grid,
-                                            step)
         if acc <= 1:
             (loss, aux), grads = jax.value_and_grad(
                 step_mod.loss_fn, has_aux=True
@@ -125,7 +118,7 @@ def make_dp_train_step(cfg: Config, mesh: Mesh, dataset=None,
         grads, aux = _local_grads(trainable, batch, key, state.grid,
                                   state.step)
         ray_err = aux.pop("ray_err")  # per-ray, stays sharded
-        # ICI gradient sync — mean over shards (each shard already
+        # gradient sync — mean over shards (each shard already
         # averaged over its local rays, shards hold equal ray counts)
         grads = _pmean(grads)
         aux = _pmean(aux)
@@ -241,150 +234,54 @@ def make_dp_train_step(cfg: Config, mesh: Mesh, dataset=None,
     return jax.jit(sharded, donate_argnums=(0,))
 
 
-def make_slice_dp_train_step(cfg: Config, mesh: Mesh):
-    """DP train step over a 2-D (dcn, data) mesh (mesh.make_slice_mesh)
-    — the MULTI-SLICE scaling story (SURVEY §5.8, VERDICT r4 weak #5).
-
-    Rays are sharded over BOTH axes (pure DP: every chip gets
-    num_rays / (n_slices * slice_size) rays); params replicate
-    everywhere. The gradient sync is HIERARCHICAL, written as two
-    explicit pmeans so the collective structure matches the physical
-    interconnects:
-
-      1. pmean over 'data'  — within each slice, rides the ICI torus;
-      2. pmean over 'dcn'   — ONE pre-reduced gradient per slice
-         crosses the data-center network.
-
-    Stage 2's DCN bytes are 1/slice_size of a flat all-reduce over
-    every chip, which is the whole point: DCN bandwidth per chip is
-    ~25x below ICI on v5e pods, so the cross-slice reduction must see
-    already-reduced operands. For the ~2.4 MB flagship param pytree
-    the per-step DCN cost is ~2.4 MB x 2 (bidirectional ring over
-    slices) regardless of slice size.
-
-    Signature: (state, batch, key) -> (state, aux); batch rays arrive
-    sharded P(('dcn', 'data')). Numerics are identical to the 1-D path
-    (pmean-of-pmeans over equal shard sizes == global mean — asserted
-    against the single-device step in tests/test_parallel.py).
-    """
-    from .mesh import DCN_AXIS
-
-    opt = step_mod.make_optimizer(cfg)
-
-    def _step(state: TrainState, batch: Batch, key: jax.Array):
-        # fold BOTH mesh coordinates so stratified samples differ on
-        # every chip of every slice
-        key = jax.random.fold_in(key, jax.lax.axis_index(DCN_AXIS))
-        key = jax.random.fold_in(key, jax.lax.axis_index(DATA_AXIS))
-        trainable = step_mod._trainable(state, cfg)
-        grads, aux = _local_grads_plain(trainable, batch, key, cfg,
-                                        state.grid, state.step)
-        ray_err = aux.pop("ray_err")
-        # hierarchical sync: ICI first, then one copy per slice over DCN
-        grads = jax.lax.pmean(grads, DATA_AXIS)
-        grads = jax.lax.pmean(grads, DCN_AXIS)
-        aux = jax.lax.pmean(jax.lax.pmean(aux, DATA_AXIS), DCN_AXIS)
-        aux["ray_err"] = ray_err
-        return step_mod.apply_grads(state, trainable, grads, opt, cfg), aux
-
-    aux_spec = {
-        "loss": P(), "loss_coarse": P(), "psnr": P(),
-        "ray_err": P((DCN_AXIS, DATA_AXIS)),
-    }
-    if cfg.render.num_fine_samples > 0:
-        aux_spec["loss_fine"] = P()
-    if cfg.proposal.enabled:
-        aux_spec["loss_prop"] = P()
-    if cfg.train.distortion_weight > 0:
-        aux_spec["loss_dist"] = P()
-    sharded = jax.shard_map(
-        _step,
-        mesh=mesh,
-        in_specs=(P(), P((DCN_AXIS, DATA_AXIS)), P()),
-        out_specs=(P(), aux_spec),
-        check_vma=False,
-    )
-    return jax.jit(sharded, donate_argnums=(0,))
-
-
-def _local_grads_plain(trainable, batch: Batch, key: jax.Array, cfg: Config,
-                       grid=None, step=None):
-    """Single-shard gradient computation shared by the mesh variants
-    (the 1-D path's _local_grads closure, hoisted for reuse)."""
-    if step_mod.whole_ray_supported(cfg):
-        return step_mod.whole_ray_grads(trainable, batch, key, cfg, grid,
-                                        step)
-    (loss, aux), grads = jax.value_and_grad(
-        step_mod.loss_fn, has_aux=True
-    )(trainable, batch, key, cfg, grid, step)
-    return grads, aux
-
-
-def default_render_chunk(render_cfg, fused: bool = False,
-                         model_cfg=None) -> int:
+def default_render_chunk(render_cfg, model_cfg=None) -> int:
     """Render-chunk ray count for a fixed ray-sample memory budget.
 
-    XLA path: 65536 rays is the measured-good point at 64 samples
-    (bench.py); a hierarchical union pass holds (chunk, S_c+S_f, width)
-    activation temps, so the same chunk OOMs a 16 GB HBM at 64+128 —
-    scale rays down as the per-ray sample total grows (standalone fine
-    passes run sequentially, so their peak is the larger pass, not the
-    sum). Power-of-two floored so frame paddings nest.
+    The budget is 65536 rays at 64 samples. A hierarchical union pass
+    holds (chunk, S_c+S_f, width) activation temps, so rays scale down
+    as the per-ray sample total grows (standalone fine passes run
+    sequentially, so their peak is the larger pass, not the sum).
+    Power-of-two floored so frame paddings nest.
 
-    Fused whole-ray kernel path: per-sample activations never touch
-    HBM (only (chunk, S) weights/sigma outputs do), so the chunk can
-    be 4x larger — fewer lax.map trips per frame.
-
-    Flat-layout hashgrid (arch=hashgrid, hash_brick=False): the XLA
-    render program materializes 8 corner gathers per (point, level) —
-    measured 36 GB at chunk 32768 x S=128 on a 15.75 GB HBM (800px
-    ``--preset ngp --hash_brick false`` eval, round 5). An 8x smaller
-    ray-sample budget lands on the train-proven 4096 x 128 footprint.
+    Flat-layout hashgrid (arch=hashgrid, hash_brick=False): the render
+    program materializes 8 corner gathers per (point, level), so its
+    ray-sample budget is 8x smaller (4096 rays x 128 samples).
     """
     s, f = render_cfg.num_samples, render_cfg.num_fine_samples
     s_total = max(s, f) if render_cfg.fine_mode == "standalone" else s + f
-    mult = 4 if fused else 1
-    budget = mult * 65536 * 64  # ray-samples per chunk
+    budget = 65536 * 64  # ray-samples per chunk
     if (model_cfg is not None and getattr(model_cfg, "arch", "") == "hashgrid"
             and not getattr(model_cfg, "hash_brick", False)):
         budget //= 8
-    chunk = max(4096, min(mult * 65536, budget // max(s_total, 1)))
+    chunk = max(4096, min(65536, budget // max(s_total, 1)))
     return 1 << (chunk.bit_length() - 1)
 
 
 def make_dp_render(cfg: Config, mesh: Mesh, camera=None, chunk: int = 0):
-    """Sharded full-frame renderer: rays split across chips, frame
-    gathered — the <2 s 800x800 novel-view path (BASELINE north star).
+    """Sharded full-frame renderer: rays split across devices, frame
+    gathered — the 800x800 novel-view path.
 
     Returns fn(params, fine_params, origins, dirs, key) -> (rgb, depth,
     acc) over flat ray arrays (caller reshapes to HxW). The per-shard
     ray count must be a multiple of ``chunk`` (render_frame pads);
     chunking runs ON-DEVICE via lax.map — one dispatch and one compile
     per frame shape instead of a host loop — while bounding the
-    (rays, samples, 3) temp blowup (XLA pads the 3-wide minor dim to
-    128 lanes; see train/loop.render_frame).
+    (rays, samples, width) activation temps of one chunk.
 
-    ``chunk=0`` (default) sizes the chunk to a fixed ray-sample budget:
-    65536 rays is proven at 64 samples (bench.py), but a hierarchical
-    union pass holds (chunk, S_total, width) activation temps, so at
-    64+128 the same chunk OOMs a 16 GB HBM — scale rays down as
-    S_total grows, power-of-two floored.
+    ``chunk=0`` (default) sizes the chunk to a fixed ray-sample budget
+    (default_render_chunk).
     """
     camera = camera or cfg.camera
     dtype = step_mod._matmul_dtype(cfg)
-    use_fused = cfg.use_fused_kernel and render.fused_supported(cfg.model)
     if chunk <= 0:
-        chunk = default_render_chunk(cfg.render, fused=use_fused,
-                                     model_cfg=cfg.model)
+        chunk = default_render_chunk(cfg.render, model_cfg=cfg.model)
 
-    # occupancy grids guide RENDER sampling too: a field trained at 32
-    # grid-guided samples measured 45.2 dB rendered grid-guided-192 vs
-    # 26.7 at uniform-32 — the surfaces are razor-thin, uniform render
-    # sampling misses them regardless of field quality
+    # occupancy grids guide RENDER sampling too: a field trained on
+    # grid-guided samples has razor-thin surfaces that uniform render
+    # sampling misses regardless of field quality
     use_grid = cfg.render.occ_res > 0
 
-    def _render_chunk(params, fine_params, grid, origins, dirs, key,
-                      packed, fpacked):
+    def _render_chunk(params, fine_params, grid, origins, dirs, key):
         prop_params = None
         if cfg.proposal.enabled:
             # the second-net slot carries the proposal MLP (see
@@ -395,7 +292,6 @@ def make_dp_render(cfg: Config, mesh: Mesh, camera=None, chunk: int = 0):
         coarse, fine = render.render_rays(
             params, origins, dirs, key, cfg.model, cfg.render, camera,
             fine_params=fine_params, randomized=False, dtype=dtype,
-            use_fused=use_fused, packed=packed, fine_packed=fpacked,
             prop_params=prop_params, prop_cfg=cfg.proposal, grid=grid,
         )
         out = fine if fine is not None else coarse
@@ -406,31 +302,16 @@ def make_dp_render(cfg: Config, mesh: Mesh, camera=None, chunk: int = 0):
     def _render(params, fine_params, grid, origins, dirs, key):
         shard = 0 if single else jax.lax.axis_index(DATA_AXIS)
         key = jax.random.fold_in(key, shard)
-        # pack the kernel weights ONCE per frame, outside the chunk loop
-        packed = fpacked = None
-        if use_fused:
-            from ..kernels.fused_render import pack_weights
-
-            packed = pack_weights(params, cfg.model)
-            # The second-net slot carries the PROPOSAL MLP when proposal
-            # sampling is on (a density-only tree with no feature/view/
-            # rgb heads — not packable as a radiance net), and
-            # share_network discards fine_params before rendering.
-            # _render_chunk does the same routing; mirror it here so we
-            # only pack a fine net when one actually renders.
-            if (fine_params is not None and not cfg.proposal.enabled
-                    and not cfg.render.share_network):
-                fpacked = pack_weights(fine_params, cfg.model)
         n = origins.shape[0]
         if n <= chunk:
             return _render_chunk(params, fine_params, grid, origins, dirs,
-                                 key, packed, fpacked)
+                                 key)
         assert n % chunk == 0, (n, chunk)
         oc = origins.reshape(-1, chunk, 3)
         dc = dirs.reshape(-1, chunk, 3)
         rgb, depth, acc = jax.lax.map(
             lambda od: _render_chunk(
-                params, fine_params, grid, od[0], od[1], key, packed, fpacked
+                params, fine_params, grid, od[0], od[1], key
             ),
             (oc, dc),
         )

@@ -1,15 +1,14 @@
 """Device mesh + sharding helpers.
 
 The reference has no parallelism of any kind (SURVEY §2.12-bis: one
-thread, one Metal GPU). The TPU-native scaling story (SURVEY §5.8) is a
-1-D mesh over the 'data' axis: ray batches sharded per chip, params
-replicated (the MLP is ~2.4 MB — pure DP, no FSDP/TP needed), psum
-gradient sync over ICI. Full-frame renders shard pixel tiles over the
-same axis.
+thread, one Metal GPU). The scaling story (SURVEY §5.8) is a 1-D mesh
+over the 'data' axis: ray batches sharded per device, params replicated
+(the MLP is ~2.4 MB — pure DP, no FSDP/TP needed), psum gradient sync
+over the device interconnect. Full-frame renders shard pixel tiles over
+the same axis.
 
 Multi-host: call jax.distributed.initialize() before make_mesh() (see
-parallel/dist_init.py); the mesh then spans all processes' devices and
-the same shardings ride ICI intra-slice / DCN across slices.
+parallel/dist_init.py); the mesh then spans all processes' devices.
 """
 
 from __future__ import annotations
@@ -20,53 +19,19 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 DATA_AXIS = "data"
 SCENE_AXIS = "scene"
-DCN_AXIS = "dcn"
-
-
-def make_slice_mesh(n_slices: int, num_devices: int = 0, devices=None) -> Mesh:
-    """2-D (dcn, data) mesh for MULTI-SLICE data parallelism
-    (SURVEY §5.8 names both interconnects): row = one ICI-connected
-    slice, rows joined by the data-center network. Gradients sync
-    hierarchically (dp.make_slice_dp_train_step): pmean over 'data'
-    rides ICI inside each slice, then ONE pre-reduced copy per slice
-    crosses DCN in the 'dcn' pmean — DCN traffic is 1/slice_size of a
-    flat all-reduce over every chip.
-
-    Device order matters on real pods: jax.devices() is process-major
-    under jax.distributed, and processes are slice-major, so a
-    contiguous reshape puts each slice's devices in one row. E.g. two
-    v5e-256 slices -> make_slice_mesh(2) gives (2, 256). On one slice
-    (or CPU-device tests) the rows are virtual but the collective
-    structure — and therefore the compiled program — is the same.
-    """
-    if devices is None:
-        devices = jax.devices()
-    if num_devices and num_devices > 0:
-        assert num_devices <= len(devices), (
-            f"requested {num_devices} devices, have {len(devices)}"
-        )
-        devices = devices[:num_devices]
-    ndev = len(devices)
-    assert ndev % n_slices == 0, (
-        f"{ndev} devices do not split into {n_slices} equal slices"
-    )
-    return Mesh(
-        np.asarray(devices).reshape(n_slices, ndev // n_slices),
-        (DCN_AXIS, DATA_AXIS),
-    )
 
 
 def make_scene_mesh(
     n_scenes: int, num_devices: int = 0, devices=None
 ) -> Mesh:
-    """2-D (scene, data) mesh for multi-scene pod training.
+    """2-D (scene, data) mesh for multi-scene training.
 
     Scene groups advance independent scenes (zero cross-group
     collectives); within a group, rays are data-parallel with grad
     psum. scene_shards = gcd(n_scenes, n_devices) so any scene count
-    maps onto any pod shape: 2 scenes on 8 chips -> (2, 4) — each scene
-    gets a 4-chip DP group; 3 scenes on 8 chips -> (1, 8) — every chip
-    holds all scenes vmapped, rays split 8 ways.
+    maps onto any device count: 2 scenes on 4 devices -> (2, 2) — each
+    scene gets a 2-device DP group; 3 scenes on 4 devices -> (1, 4) —
+    every device holds all scenes vmapped, rays split 4 ways.
     """
     import math
 
@@ -87,8 +52,8 @@ def make_scene_mesh(
 
 def make_mesh(num_devices: int = 0, devices=None) -> Mesh:
     """1-D data-parallel mesh over the first ``num_devices`` devices
-    (0 = all). Works identically for 1 real chip, a v5e-8 slice, or 8
-    virtual CPU devices in tests."""
+    (0 = all). Works identically for 1 GPU, 4 GPUs, or 8 virtual CPU
+    devices in tests."""
     if devices is None:
         devices = jax.devices()
     if num_devices and num_devices > 0:

@@ -1,13 +1,13 @@
-"""Pod-scale multi-scene training: one radiance field per scene,
-scenes sharded across the device mesh (BASELINE config 5).
+"""Multi-scene training: one radiance field per scene, scenes sharded
+across the device mesh (BASELINE config 5).
 
-The TPU-native shape of "train many scenes on a v5e-8": stack every
-model/optimizer leaf along a leading scene axis, vmap the single-scene
-train step over that axis, and shard the axis over the mesh — each
-chip (group) advances its own scene with ZERO cross-chip collectives
-(scene training is embarrassingly parallel; the mesh is used for
-placement, not communication). With more scenes than chips, XLA
-time-multiplexes scene groups per chip.
+"Train many scenes on several devices": stack every model/optimizer
+leaf along a leading scene axis, vmap the single-scene train step over
+that axis, and shard the axis over the mesh — each device (group)
+advances its own scene with ZERO cross-device collectives (scene
+training is embarrassingly parallel; the mesh is used for placement,
+not communication). With more scenes than devices, each device holds
+several scenes, vmapped.
 
 Composes with everything single-scene: checkpointing stores the stacked
 state; `scene_state(ms, i)` slices one scene out for rendering/eval.
@@ -80,14 +80,9 @@ def make_multiscene_train_step(cfg: Config, mesh: Mesh, n_scenes: int):
         def _scene_step(state, batch, k):
             k = jax.random.fold_in(k, dshard)
             trainable = step_mod._trainable(state, cfg)
-            if step_mod.whole_ray_supported(cfg):
-                grads, aux = step_mod.whole_ray_grads(
-                    trainable, batch, k, cfg, state.grid, state.step
-                )
-            else:
-                (_, aux), grads = jax.value_and_grad(
-                    step_mod.loss_fn, has_aux=True
-                )(trainable, batch, k, cfg, state.grid, state.step)
+            (_, aux), grads = jax.value_and_grad(
+                step_mod.loss_fn, has_aux=True
+            )(trainable, batch, k, cfg, state.grid, state.step)
             ray_err = aux.pop("ray_err")  # per-ray, stays sharded
             grads = jax.lax.pmean(grads, DATA_AXIS)
             aux = jax.lax.pmean(aux, DATA_AXIS)

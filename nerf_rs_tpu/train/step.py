@@ -1,6 +1,6 @@
 """Jitted training step: value_and_grad over the renderer + optax Adam.
 
-TPU-native replacement for the reference's Trainer (src/model.rs:301-346):
+Replacement for the reference's Trainer (src/model.rs:301-346):
 MSE loss (mse_loss, src/model.rs:296-299), Adam at lr 5e-4
 (src/model.rs:306-309), one fused XLA program per step. Gradient
 accumulation — dead code in the reference (grad_accumulation_step,
@@ -129,17 +129,6 @@ def _matmul_dtype(cfg: Config):
     return None
 
 
-def _kernel_interpret(cfg: Config) -> bool:
-    """Pallas interpret mode: explicit override, else auto by backend.
-    The override matters when a TPU backend is registered but the
-    program targets a CPU mesh (hermetic multichip dryrun)."""
-    if cfg.train.kernel_interpret is not None:
-        return cfg.train.kernel_interpret
-    from ..kernels.fused_render import default_is_tpu
-
-    return not default_is_tpu()  # Mosaic only targets TPU
-
-
 def _prop_anneal(cfg: Config, step):
     """mip-NeRF 360 annealing exponent for the proposal resampling
     weights: bias(train_frac, slope) ramps 0 -> 1 over
@@ -231,15 +220,11 @@ def _proposal_loss(
     batch: Batch,
     key: jax.Array,
     cfg: Config,
-    main_weights_fn=None,
     step=None,
 ) -> Tuple[jnp.ndarray, Dict[str, jnp.ndarray]]:
     """Photometric loss on proposal-guided samples + interlevel bound
-    loss training the proposal (ops/proposal.py; mip-NeRF 360 scheme).
-
-    ``main_weights_fn(ts) -> (rgb, weights)`` overrides the main pass —
-    the fused whole-ray path injects its kernel here; default is the
-    plain XLA field + composite."""
+    loss training the proposal (ops/proposal.py; mip-NeRF 360 scheme)."""
+    from ..models.mlp import apply_nerf
     from ..ops import proposal as prop_ops, sampling
 
     dtype = _matmul_dtype(cfg)
@@ -251,25 +236,18 @@ def _proposal_loss(
         contract=cfg.model.contract,
     )
     gold_rgb = batch.gold[..., :3]
-    if main_weights_fn is None:
-        from ..models.mlp import apply_nerf
-
-        pts = sampling.points_from_ts(batch.origins, batch.dirs, ts_m)
-        vd = batch.dirs / jnp.linalg.norm(
-            batch.dirs, axis=-1, keepdims=True
-        )
-        noise_std = cfg.render.raw_noise_std if cfg.render.randomized else 0.0
-        sigma, rgb = apply_nerf(
-            params, pts, vd[..., None, :], cfg.model, dtype,
-            noise_std=noise_std, noise_key=kn,
-        )
-        out = render.composite(
-            sigma, rgb[..., :3], sampling.deltas_from_ts(ts_m, cfg.camera.far),
-            white_background=cfg.render.white_background, ts=ts_m,
-        )
-        rgb_m, w_m = out.rgb, out.weights
-    else:
-        rgb_m, w_m = main_weights_fn(ts_m)
+    pts = sampling.points_from_ts(batch.origins, batch.dirs, ts_m)
+    vd = batch.dirs / jnp.linalg.norm(batch.dirs, axis=-1, keepdims=True)
+    noise_std = cfg.render.raw_noise_std if cfg.render.randomized else 0.0
+    sigma, rgb = apply_nerf(
+        params, pts, vd[..., None, :], cfg.model, dtype,
+        noise_std=noise_std, noise_key=kn,
+    )
+    out = render.composite(
+        sigma, rgb[..., :3], sampling.deltas_from_ts(ts_m, cfg.camera.far),
+        white_background=cfg.render.white_background, ts=ts_m,
+    )
+    rgb_m, w_m = out.rgb, out.weights
     loss_photo = render.mse(rgb_m[..., :3], gold_rgb)
     loss_il = prop_ops.multi_interlevel_loss(
         prop_ops.edges_from_ts(ts_m), w_m, hists
@@ -294,310 +272,6 @@ def _proposal_loss(
         aux["loss_dist"] = loss_d
         aux["loss"] = loss
     return loss, aux
-
-
-def _whole_ray_proposal_grads(
-    trainable, batch: Batch, key: jax.Array, cfg: Config, step=None,
-) -> Tuple[Any, Dict[str, jnp.ndarray]]:
-    """Proposal-guided training through the fused kernel: tiny proposal
-    MLP in XLA picks the samples, ONE kernel launch computes the main
-    network's gradients on them, and the proposal's gradients come from
-    the interlevel loss alone (vjp through its forward — the kernel's
-    weights are values, exactly the stop-grad mip-NeRF 360 wants)."""
-    from ..ops import proposal as prop_ops, render as render_ops, sampling
-
-    params, prop_params = trainable
-    dtype = _matmul_dtype(cfg)
-    n = batch.origins.shape[0]
-    pcfg = cfg.proposal
-    anneal = _prop_anneal(cfg, step)
-    # key schedule MUST match ops/proposal.proposal_resample exactly —
-    # test_whole_ray_proposal_grads_match_xla asserts this path and the
-    # XLA path draw identical samples from the same key
-    keys = jax.random.split(key, pcfg.num_levels + 1)
-
-    def hists_fn(pp):
-        """All proposal-level histograms — the one function whose vjp
-        carries every gradient the proposal receives (draw positions
-        are stop-gradded per mip-NeRF 360, so nothing leaks around it).
-        """
-        ts = sampling.stratified_ts(
-            keys[0], n, pcfg.num_samples, cfg.camera.near,
-            cfg.camera.far, cfg.render.randomized,
-            space=cfg.render.sampling_space,
-        )
-        hists = []
-        for lvl in range(pcfg.num_levels):
-            w, bins = prop_ops.proposal_weights(
-                pp, batch.origins, batch.dirs, ts, pcfg,
-                cfg.camera.far, dtype, contract=cfg.model.contract,
-            )
-            hists.append((w, bins))
-            if lvl < pcfg.num_levels - 1:
-                ts = sampling.sample_pdf(
-                    keys[lvl + 1], bins,
-                    prop_ops.anneal_weights(jax.lax.stop_gradient(w),
-                                            anneal),
-                    pcfg.num_samples, cfg.render.randomized,
-                )
-        return tuple(hists)
-
-    hists, prop_vjp = jax.vjp(hists_fn, prop_params)
-    w_last, bins_last = hists[-1]
-    ts_m = sampling.sample_pdf(
-        keys[pcfg.num_levels], bins_last,
-        prop_ops.anneal_weights(jax.lax.stop_gradient(w_last), anneal),
-        cfg.render.num_samples, cfg.render.randomized,
-    )
-    vd = batch.dirs / jnp.linalg.norm(batch.dirs, axis=-1, keepdims=True)
-    dist_w = cfg.train.distortion_weight
-    grads_m, tg = _whole_ray_pass(params, batch, vd, ts_m, cfg,
-                                  dist=dist_w > 0.0)
-    loss_photo = jnp.mean(tg.diag[:, 4])
-
-    main_edges = prop_ops.edges_from_ts(ts_m)
-    loss_il, dws = jax.value_and_grad(
-        lambda ws: prop_ops.multi_interlevel_loss(
-            main_edges, tg.weights,
-            [(bins, w) for w, (_, bins) in zip(ws, hists)],
-        )
-    )(tuple(w for w, _ in hists))
-    (grads_p,) = prop_vjp(tuple(
-        (cfg.proposal.loss_mult * dw, jnp.zeros_like(bins))
-        for dw, (_, bins) in zip(dws, hists)
-    ))
-    aux = {
-        "loss": loss_photo + cfg.proposal.loss_mult * loss_il,
-        "loss_coarse": loss_photo,
-        "loss_prop": loss_il,
-        "psnr": render_ops.psnr_from_mse(loss_photo),
-        "ray_err": jax.lax.stop_gradient(tg.diag[:, 4]),
-    }
-    if dist_w > 0.0:
-        loss_d = jnp.mean(tg.diag[:, 5])
-        aux["loss_dist"] = loss_d
-        aux["loss"] = aux["loss"] + dist_w * loss_d
-    return (grads_m, grads_p), aux
-
-
-def whole_ray_supported(cfg: Config) -> bool:
-    """The fused whole-ray train kernel covers the paper-architecture
-    configs, coarse-only AND hierarchical (as a coarse-kernel -> XLA
-    PDF-resample -> fine-kernel chain), including proposal-guided
-    sampling (proposal in XLA, main pass in-kernel) and mip-NeRF IPE
-    (interval moments + damped encoding in-register). Compat and
-    sigma-noise configs fall back to XLA autodiff."""
-    from ..ops.render import train_fused_supported
-
-    return (
-        cfg.use_whole_ray_train
-        and train_fused_supported(cfg.model)
-        and cfg.render.raw_noise_std == 0.0
-        and not cfg.render.compat_density_color
-        and cfg.train.accumulation_steps <= 1
-        # the IPE kernel path covers stratified AND occ-guided interval
-        # sampling plus standalone/union fine (merged edges); the
-        # in-kernel distortion loss covers BOTH s-normalizations
-        # (linear over [near, far] and disparity — the unbounded
-        # recipe's space), so disparity+distortion rides the kernel too
-    )
-
-
-def _whole_ray_pass(
-    params: Params, batch: Batch, vd: jnp.ndarray, ts: jnp.ndarray,
-    cfg: Config, dist: bool = False, deltas: jnp.ndarray = None,
-    radii: jnp.ndarray = None,
-):
-    """One fused fwd+bwd kernel launch over ``ts`` samples; returns
-    (grads pytree, TrainGrads). ``dist`` applies the distortion loss
-    in-kernel (set on the FINEST pass only, matching loss_fn).
-    IPE configs pass interval midpoints as ``ts`` with explicit
-    ``deltas`` (exact interval lengths) and per-ray ``radii``."""
-    from ..kernels.fused_render import pack_weights
-    from ..kernels.fused_train import (
-        fused_train_grads, pack_weights_t, unpack_grads,
-    )
-    from ..ops import sampling
-
-    n = batch.origins.shape[0]
-    S = ts.shape[-1]
-    if deltas is None:
-        deltas = sampling.deltas_from_ts(ts, cfg.camera.far)
-    pk = pack_weights(params, cfg.model)
-    pkT = pack_weights_t(pk, cfg.model)
-    # keep VMEM-resident activations bounded: scale the ray block so
-    # rows-per-block (R*S) stays at the tuned S=64 operating point
-    rays_per_block = max(1, (cfg.train.whole_ray_block * 64) // S)
-    rays_per_block = 1 << (rays_per_block.bit_length() - 1)  # floor pow2
-    # merged-interval passes (S > 128, e.g. union's S + S_f + 1): halve
-    # the block to rows <= 4096 — Mosaic compile time scales savagely
-    # with rows at these S (61 s at rows=3200 vs 324-702 s at 6400,
-    # probed round 5 on v5e) while the step cost moves < 3%
-    if S > 128:
-        while rays_per_block > 1 and rays_per_block * S > 4096:
-            rays_per_block //= 2
-    while n % rays_per_block != 0 and rays_per_block > 1:
-        rays_per_block //= 2  # batch must divide into whole blocks
-    tg = fused_train_grads(
-        pk, pkT, batch.origins, batch.dirs, vd, ts, deltas,
-        batch.gold[..., :3], cfg.model, S,
-        white_bg=cfg.render.white_background,
-        rays_per_block=rays_per_block,
-        interpret=_kernel_interpret(cfg),
-        halves=cfg.train.whole_ray_halves,
-        dist_weight=cfg.train.distortion_weight if dist else 0.0,
-        near=cfg.camera.near,
-        far=cfg.camera.far,
-        dist_space=cfg.render.sampling_space,
-        radii=radii,
-    )
-    return unpack_grads(tg, params, cfg.model), tg
-
-
-def whole_ray_grads(
-    trainable, batch: Batch, key: jax.Array, cfg: Config,
-    grid: Optional[jnp.ndarray] = None,
-    step=None,
-) -> Tuple[Any, Dict[str, jnp.ndarray]]:
-    """Gradients + aux via the fused whole-ray fwd+bwd kernel — one
-    Pallas launch per pass replaces value_and_grad's whole fusion graph,
-    keeping activations in VMEM (see kernels/fused_train.py).
-
-    Hierarchical configs run the chain: coarse kernel (which emits the
-    per-ray compositing weights) -> inverse-CDF resample in XLA ->
-    fine kernel; losses sum per the paper (eq. 6) and so do the shared-
-    network gradients. ``trainable`` is ``params`` or, with a separate
-    fine MLP, ``(params, fine_params)`` — matching loss_fn's contract.
-    """
-    from ..ops import render as render_ops, sampling
-
-    if _has_prop(cfg):
-        return _whole_ray_proposal_grads(trainable, batch, key, cfg, step)
-
-    if _has_fine_net(cfg):
-        params, fine_params = trainable
-    else:
-        params, fine_params = trainable, None
-
-    n = batch.origins.shape[0]
-    k_coarse, k_fine = jax.random.split(key)
-    ipe = cfg.model.ipe
-    edges = deltas = radii = None
-    if ipe:
-        # interval sampling: S+1 EDGES, kernel consumes midpoints +
-        # exact lengths + per-ray cone radii — the same key flow as the
-        # XLA path (ops/render._render_rays_ipe). With an occupancy
-        # grid the edges are occ-guided draws (occupancy_edges): IPE
-        # composes with the record machinery's empty-space skipping.
-        if grid is not None and not cfg.render.compat_sampling:
-            from ..ops import occupancy
-
-            edges = occupancy.occupancy_edges(
-                k_coarse, batch.origins, batch.dirs, grid,
-                cfg.render.num_samples, cfg.camera, cfg.render,
-                cfg.render.randomized,
-            )
-        else:
-            edges = sampling.stratified_ts(
-                k_coarse, n, cfg.render.num_samples + 1, cfg.camera.near,
-                cfg.camera.far, cfg.render.randomized,
-                space=cfg.render.sampling_space,
-            )
-        ts = 0.5 * (edges[..., :-1] + edges[..., 1:])
-        deltas = edges[..., 1:] - edges[..., :-1]
-        radii = (batch.radii if batch.radii is not None
-                 else jnp.full((n,), sampling.pixel_radius(cfg.camera),
-                               jnp.float32))
-    elif grid is not None and not cfg.render.compat_sampling:
-        from ..ops import occupancy
-
-        ts = occupancy.occupancy_ts(
-            k_coarse, batch.origins, batch.dirs, grid,
-            cfg.render.num_samples, cfg.camera, cfg.render,
-            cfg.render.randomized,
-        )
-    elif cfg.render.compat_sampling:
-        ts = sampling.compat_ts(
-            k_coarse, n, cfg.render.num_samples, cfg.camera.far,
-            cfg.render.randomized,
-        )
-    else:
-        ts = sampling.stratified_ts(
-            k_coarse, n, cfg.render.num_samples, cfg.camera.near,
-            cfg.camera.far, cfg.render.randomized,
-            space=cfg.render.sampling_space,
-        )
-    vd = batch.dirs / jnp.linalg.norm(batch.dirs, axis=-1, keepdims=True)
-    dist_w = cfg.train.distortion_weight
-    one_pass = cfg.render.num_fine_samples == 0
-    grads_c, tg_c = _whole_ray_pass(params, batch, vd, ts, cfg,
-                                    dist=one_pass and dist_w > 0.0,
-                                    deltas=deltas, radii=radii)
-    loss_c = jnp.mean(tg_c.diag[:, 4])
-
-    if one_pass:
-        aux = {
-            "loss": loss_c,
-            "loss_coarse": loss_c,
-            "psnr": render_ops.psnr_from_mse(loss_c),
-            "ray_err": jax.lax.stop_gradient(tg_c.diag[:, 4]),
-        }
-        if dist_w > 0.0:
-            loss_d = jnp.mean(tg_c.diag[:, 5])
-            aux["loss_dist"] = loss_d
-            aux["loss"] = loss_c + dist_w * loss_d
-        return grads_c, aux
-
-    # hierarchical fine pass on PDF-resampled ts (kernel weights are
-    # values, not traced grads — no stop_gradient plumbing needed)
-    fine_deltas = None
-    if ipe:
-        # resample S_f + 1 new EDGES from the coarse interval histogram
-        # (the edges ARE the bins); standalone composits just the
-        # resampled intervals (mip-NeRF's scheme), union evaluates the
-        # MERGED coarse+resampled edge set (the interval analog of
-        # NeRF §5.2 — the composition the quality records ride)
-        fine_edges = sampling.sample_pdf(
-            k_fine, edges, tg_c.weights, cfg.render.num_fine_samples + 1,
-            cfg.render.randomized,
-        )
-        if cfg.render.fine_mode != "standalone":
-            fine_edges = sampling.merge_ts(edges, fine_edges)
-        all_ts = 0.5 * (fine_edges[..., :-1] + fine_edges[..., 1:])
-        fine_deltas = fine_edges[..., 1:] - fine_edges[..., :-1]
-    else:
-        mids = 0.5 * (ts[..., 1:] + ts[..., :-1])
-        bins = jnp.concatenate([ts[..., :1], mids, ts[..., -1:]], axis=-1)
-        fine_ts = sampling.sample_pdf(
-            k_fine, bins, tg_c.weights, cfg.render.num_fine_samples,
-            cfg.render.randomized,
-        )
-        if cfg.render.fine_mode == "standalone":
-            all_ts = fine_ts  # sample_pdf output is sorted by construction
-        else:
-            all_ts = sampling.merge_ts(ts, fine_ts)
-    fparams = fine_params if fine_params is not None else params
-    grads_f, tg_f = _whole_ray_pass(fparams, batch, vd, all_ts, cfg,
-                                    dist=dist_w > 0.0,
-                                    deltas=fine_deltas, radii=radii)
-    loss_f = jnp.mean(tg_f.diag[:, 4])
-
-    if fine_params is not None:
-        grads = (grads_c, grads_f)
-    else:  # shared network: both passes' gradients land on one pytree
-        grads = jax.tree_util.tree_map(jnp.add, grads_c, grads_f)
-    aux = {
-        "loss": loss_c + loss_f,
-        "loss_coarse": loss_c,
-        "loss_fine": loss_f,
-        "psnr": render_ops.psnr_from_mse(loss_f),
-        "ray_err": jax.lax.stop_gradient(tg_f.diag[:, 4]),
-    }
-    if dist_w > 0.0:
-        loss_d = jnp.mean(tg_f.diag[:, 5])
-        aux["loss_dist"] = loss_d
-        aux["loss"] = aux["loss"] + dist_w * loss_d
-    return grads, aux
 
 
 def _trainable(state: TrainState, cfg: Config):
@@ -678,10 +352,7 @@ def train_step_core(
     trainable = _trainable(state, cfg)
     acc = cfg.train.accumulation_steps
 
-    if whole_ray_supported(cfg):
-        grads, aux = whole_ray_grads(trainable, batch, key, cfg, state.grid,
-                                     state.step)
-    elif acc <= 1:
+    if acc <= 1:
         (loss, aux), grads = jax.value_and_grad(loss_fn, has_aux=True)(
             trainable, batch, key, cfg, state.grid, state.step
         )
@@ -735,8 +406,7 @@ def eval_step(
         prop_params=state.fine_params if prop else None,
         prop_cfg=cfg.proposal,
         # match the training-time sampling distribution: occ-trained
-        # fields evaluated with uniform sampling collapse (26.7 vs
-        # 44.5 dB grid-guided, docs/PERFORMANCE.md)
+        # fields evaluated with uniform sampling collapse
         grid=state.grid if cfg.render.occ_res > 0 else None,
     )
     out = fine if fine is not None else coarse

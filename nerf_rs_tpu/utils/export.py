@@ -3,9 +3,8 @@
 
 The reference has no export path at all (its only field output is the
 live minifb window, src/display.rs); production NeRF stacks ship one.
-The sampler reuses the occupancy grid's layout discipline: activations
-kept 3-D so the (M, 3) minor dim never pays the 128-lane padding tax
-(CLAUDE.md), x-slab chunking to bound device memory at large res.
+The sampler reuses the occupancy grid's layout: activations kept 3-D,
+x-slab chunking to bound device memory at large res.
 """
 
 from __future__ import annotations

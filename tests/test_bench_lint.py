@@ -1,15 +1,14 @@
-"""Undefined-name lint for the driver-facing scripts.
+"""Undefined-name lint for the scripts that run on the GPU.
 
-bench.py and __graft_entry__.py are executed by the DRIVER on the real
-chip, not by the CPU test suite — so a NameError in their bodies
-survives py_compile, import, and the whole suite, then kills the
-metric of record at round end. (Round 5: extracting
-``flagship_config()`` moved RenderConfig/TrainConfig imports out of
-``bench.main``, and the breakage was only caught by a manual on-chip
-run minutes before the driver's.) This test does a symtable pass over
-each script: every name a function references must be bound somewhere
-— locally, in an enclosing function scope, at module top level, or in
-builtins. No execution, no chip, runs in milliseconds.
+bench.py, chip_smoke.py and __graft_entry__.py run on the card, not in
+the CPU test suite beyond their import, so a NameError in a function
+body survives py_compile, import and the whole suite, and only shows
+on the card. (Extracting ``flagship_config()`` once moved
+RenderConfig/TrainConfig imports out of ``bench.main`` that way.) This
+test does a symtable pass over each script: every name a function
+references must be bound somewhere — locally, in an enclosing function
+scope, at module top level, or in builtins. No execution, no card,
+runs in milliseconds.
 """
 
 import builtins
@@ -19,7 +18,7 @@ import symtable
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-SCRIPTS = ["bench.py", "__graft_entry__.py"]
+SCRIPTS = ["bench.py", "chip_smoke.py", "__graft_entry__.py"]
 
 
 def _bound_names(tab):
@@ -55,5 +54,5 @@ def test_driver_script_has_no_undefined_names(script):
     _walk(tab, top, problems)
     assert not problems, (
         f"{script} references names with no binding in any scope "
-        f"(would NameError when the driver runs it): {problems}"
+        f"(would NameError on the card): {problems}"
     )

@@ -38,7 +38,7 @@ def test_roundtrip_preserves_everything(tmp_path):
     for i in range(3):
         state, _ = train_step(state, _batch(cfg, jax.random.fold_in(key, i)), key, cfg)
     path = ckpt.save(state, str(tmp_path), ts=1234)
-    assert os.path.basename(path) == "checkpoint-1234-3.msgpack"
+    assert os.path.basename(path) == "checkpoint-1234-3.npz"
 
     fresh = init_state(jax.random.PRNGKey(9), cfg)  # different seed
     restored = ckpt.restore(path, fresh)
@@ -102,20 +102,21 @@ def test_latest_checkpoint(tmp_path):
 
 
 def test_restore_pre_grid_checkpoint(tmp_path):
-    """Checkpoints saved before TrainState gained the ``grid`` field
-    (a 4-field state dict) must still restore (ADVICE r2: format break)."""
-    from flax import serialization
+    """A checkpoint that carries no ``grid`` (saved without --occ_res)
+    restores into an occupancy-grid config: the grid starts from the
+    template, every other field from the file (ADVICE r2)."""
+    import dataclasses
 
     cfg = _cfg()
     state = init_state(jax.random.PRNGKey(0), cfg)
-    # simulate an old checkpoint: drop the 'grid' key from the state dict
-    sd = serialization.to_state_dict(jax.device_get(state))
-    sd.pop("grid")
-    path = str(tmp_path / "checkpoint-1-0.msgpack")
-    with open(path, "wb") as f:
-        f.write(serialization.msgpack_serialize(sd))
-    restored = ckpt.restore(path, state)
-    assert restored.grid is None
+    assert state.grid is None
+    path = ckpt.save(state, str(tmp_path), ts=1)
+    cfg_occ = dataclasses.replace(
+        cfg, render=RenderConfig(num_samples=8, occ_res=4))
+    template = init_state(jax.random.PRNGKey(5), cfg_occ)
+    restored = ckpt.restore(path, template)
+    np.testing.assert_array_equal(np.asarray(restored.grid),
+                                  np.asarray(template.grid))
     for a, b in zip(
         jax.tree_util.tree_leaves(restored.params),
         jax.tree_util.tree_leaves(state.params),
@@ -142,3 +143,46 @@ def test_restore_weights_warns_on_dropped_grid(tmp_path):
         warnings.simplefilter("always")
         ckpt.restore_weights(path, tmpl)
     assert any("grid" in str(x.message) for x in w), [str(x.message) for x in w]
+
+
+def test_file_is_plain_npz_written_atomically(tmp_path):
+    """Every leaf sits in the archive under "<field>/<key path>", loads
+    without pickle, and the temporary file is gone after the write."""
+    cfg = _cfg()
+    state = init_state(jax.random.PRNGKey(0), cfg)
+    path = ckpt.save(state, str(tmp_path), ts=7)
+    assert os.listdir(tmp_path) == [os.path.basename(path)]
+    with np.load(path, allow_pickle=False) as z:
+        names = set(z.files)
+        np.testing.assert_array_equal(
+            z["params/['trunk'][0]['w']"],
+            np.asarray(state.params["trunk"][0]["w"]))
+    assert "step/" in names
+    assert not any(n.startswith("fine_params/") for n in names)
+
+
+def test_restore_rejects_another_configuration(tmp_path):
+    import dataclasses
+
+    import pytest
+
+    cfg = _cfg()
+    path = ckpt.save(init_state(jax.random.PRNGKey(0), cfg), str(tmp_path))
+    wider = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, net_width=24))
+    with pytest.raises(ValueError, match="shape"):
+        ckpt.restore(path, init_state(jax.random.PRNGKey(0), wider))
+    deeper = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, net_depth=3))
+    with pytest.raises(KeyError, match="different configuration"):
+        ckpt.restore(path, init_state(jax.random.PRNGKey(0), deeper))
+
+
+def test_error_store_sidecar_roundtrip(tmp_path):
+    cfg = _cfg()
+    state = init_state(jax.random.PRNGKey(0), cfg)
+    err = np.linspace(0.0, 1.0, 12, dtype=np.float32).reshape(3, 4)
+    path = ckpt.save(state, str(tmp_path), ts=3, err_store=jnp.asarray(err))
+    np.testing.assert_array_equal(ckpt.load_err_store(path), err)
+    bare = ckpt.save(state, str(tmp_path / "bare"), ts=3)
+    assert ckpt.load_err_store(bare) is None

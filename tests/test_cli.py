@@ -125,7 +125,6 @@ def test_explicit_flags_beat_presets():
     assert cfg.render.num_samples == 32          # user's flag wins
     assert cfg.render.num_fine_samples == 128    # preset fills the rest
     assert cfg.render.white_background is True
-    assert cfg.use_whole_ray_train is True
 
     # without the explicit flag the preset value applies
     argv = ["train", "--preset", "hierarchical"]
@@ -170,46 +169,6 @@ def test_record_preset():
     assert cfg.render.occ_res == 32
     assert cfg.render.occ_aabb == 1.6
     assert cfg.render.occ_uniform_frac == 0.10
-    # round-4 record recipe: IPE + union fine; rides the whole-ray
-    # kernels since round 5 (the S=193 union pass is compile-pad
-    # aligned to 200 — kernels/fused_train.py's Mosaic guard)
+    # record recipe: IPE + union fine (S + S_f + 1 = 193 intervals)
     assert cfg.model.ipe and cfg.render.fine_mode == "union"
-    assert cfg.use_whole_ray_train
 
-
-def test_fused_render_is_the_cli_default():
-    """VERDICT r4 weak #1: the round-3 parser default silently overrode
-    Config.use_fused_kernel=True, so every CLI entry point took the slow
-    XLA render path while the docs claimed the kernel was default. Pin
-    the CLI->Config resolution: kernel ON for render/train/eval and
-    every non-compat preset; compat is the documented exception
-    (config.reference_compat_config) unless forced explicitly."""
-    from nerf_rs_tpu.cli import explicit_dests
-
-    presets = ["", "tiny", "full", "hierarchical", "record", "proposal",
-               "pod", "ngp", "factored", "mipnerf", "unbounded"]
-    for sub in ["train", "render", "eval"]:
-        for preset in presets:
-            argv = [sub] + (["--preset", preset] if preset else [])
-            if sub in ("render", "eval"):
-                argv += ["--save_dir", "/tmp/x"]
-            args = build_parser().parse_args(argv)
-            args._explicit = explicit_dests(argv)
-            cfg = config_from_args(args)
-            assert cfg.use_fused_kernel is True, (sub, preset)
-
-    # compat: documented exception — XLA path by default ...
-    argv = ["train", "--compat", "true"]
-    args = build_parser().parse_args(argv)
-    args._explicit = explicit_dests(argv)
-    assert config_from_args(args).use_fused_kernel is False
-    # ... but an explicit flag still wins
-    argv = ["train", "--compat", "true", "--use_fused_kernel", "true"]
-    args = build_parser().parse_args(argv)
-    args._explicit = explicit_dests(argv)
-    assert config_from_args(args).use_fused_kernel is True
-    # and a user can force XLA rendering off explicitly
-    argv = ["render", "--use_fused_kernel", "false", "--save_dir", "/tmp/x"]
-    args = build_parser().parse_args(argv)
-    args._explicit = explicit_dests(argv)
-    assert config_from_args(args).use_fused_kernel is False

@@ -227,26 +227,6 @@ def test_proposal_resample_contracted():
     assert len(hists) == 2
 
 
-def test_contract_covered_by_fused_kernels():
-    """Round 4: contraction + disparity-s distortion both live inside
-    the whole-ray kernels (tests/test_contract_kernel.py has the parity
-    proofs), so the whole unbounded family rides the fused path."""
-    from nerf_rs_tpu.ops.render import fused_supported, train_fused_supported
-    from nerf_rs_tpu.train.step import whole_ray_supported
-
-    m = ModelConfig(contract=True)
-    assert train_fused_supported(m) and fused_supported(m)
-    cfg = Config(camera=CameraConfig(near=0.3, far=60.0), model=m,
-                 use_whole_ray_train=True)
-    assert whole_ray_supported(cfg)
-    # disparity sampling + the in-kernel disparity-s distortion loss
-    cfg2 = Config(camera=CameraConfig(near=0.3, far=60.0),
-                  render=RenderConfig(sampling_space="disparity"),
-                  train=TrainConfig(distortion_weight=0.01),
-                  use_whole_ray_train=True)
-    assert whole_ray_supported(cfg2)
-
-
 def test_unbounded_preset_cli():
     import nerf_rs_tpu.cli as cli
 

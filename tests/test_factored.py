@@ -21,7 +21,7 @@ from nerf_rs_tpu.config import (
 )
 from nerf_rs_tpu.models import factored
 from nerf_rs_tpu.models.mlp import apply_nerf, init_nerf_params
-from nerf_rs_tpu.train import Batch, init_state, train_step
+from nerf_rs_tpu.train import Batch, init_state
 
 CFG = ModelConfig(
     arch="factored", fac_levels=3, fac_base_res=4, fac_max_res=16,
@@ -89,38 +89,6 @@ def test_encode_continuity():
     assert float(jnp.abs(e1 - e2).max()) < 1e-2
 
 
-def test_fused_encode_matches_xla():
-    """Pallas kernel (interpret mode on CPU) == XLA encode, values and
-    line-gradients; the kernel's point-cotangent is zero by design."""
-    from nerf_rs_tpu.kernels.fused_factored import fused_factored_encode
-
-    key = jax.random.PRNGKey(0)
-    lines = jax.random.normal(key, (3, factored.basis_dim(CFG),
-                                    CFG.fac_comps))
-    pts = jax.random.uniform(jax.random.PRNGKey(1), (100, 3),
-                             minval=-1.2, maxval=1.2)
-    want = factored.factored_encode(lines, pts, CFG)
-    got = fused_factored_encode(lines, pts, CFG, block=128,
-                                interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-5, atol=1e-6)
-
-    g_out = jax.random.normal(jax.random.PRNGKey(2),
-                              (100, CFG.fac_comps))
-
-    def loss_xla(l):
-        return jnp.sum(factored.factored_encode(l, pts, CFG) * g_out)
-
-    def loss_fused(l):
-        return jnp.sum(fused_factored_encode(l, pts, CFG, block=128,
-                                             interpret=True) * g_out)
-
-    gx = jax.grad(loss_xla)(lines)
-    gf = jax.grad(loss_fused)(lines)
-    np.testing.assert_allclose(np.asarray(gf), np.asarray(gx),
-                               rtol=1e-4, atol=1e-5)
-
-
 @pytest.mark.slow
 def test_apply_shapes_and_grad_flow():
     params = init_nerf_params(jax.random.PRNGKey(0), CFG)
@@ -140,24 +108,6 @@ def test_apply_shapes_and_grad_flow():
     for name in ("lines", "sigma1", "sigma2", "color1", "color2", "rgb"):
         leaf = g[name]["w"] if isinstance(g[name], dict) else g[name]
         assert float(jnp.abs(leaf).sum()) > 0, f"no grad into {name}"
-
-
-def test_fused_paths_fall_back():
-    from nerf_rs_tpu.ops.render import fused_supported
-    from nerf_rs_tpu.train.step import whole_ray_supported
-
-    assert not fused_supported(CFG)
-    cfg = Config(camera=CameraConfig(width=32, height=32), model=CFG,
-                 render=RenderConfig(num_samples=16),
-                 train=TrainConfig(num_rays=64, precision="f32"),
-                 use_whole_ray_train=True)
-    assert not whole_ray_supported(cfg)
-    state = init_state(jax.random.PRNGKey(0), cfg)
-    o = jnp.zeros((64, 3)).at[:, 2].set(-1.0)
-    d = jnp.zeros((64, 3)).at[:, 2].set(1.0)
-    batch = Batch(origins=o, dirs=d, gold=jnp.ones((64, 3)) * 0.5)
-    state, aux = train_step(state, batch, jax.random.PRNGKey(1), cfg)
-    assert np.isfinite(float(aux["loss"]))
 
 
 @pytest.mark.slow

@@ -80,25 +80,6 @@ def test_apply_shapes_and_grad_flow():
         assert float(jnp.abs(leaf).sum()) > 0, f"no grad into {name}"
 
 
-def test_fused_paths_fall_back():
-    from nerf_rs_tpu.ops.render import fused_supported
-    from nerf_rs_tpu.train.step import whole_ray_supported
-
-    assert not fused_supported(CFG)
-    cfg = Config(camera=CameraConfig(width=32, height=32), model=CFG,
-                 render=RenderConfig(num_samples=16),
-                 train=TrainConfig(num_rays=64, precision="f32"),
-                 use_whole_ray_train=True)
-    assert not whole_ray_supported(cfg)
-    # and the step runs through the XLA path despite the flag
-    state = init_state(jax.random.PRNGKey(0), cfg)
-    o = jnp.zeros((64, 3)).at[:, 2].set(-1.0)
-    d = jnp.zeros((64, 3)).at[:, 2].set(1.0)
-    batch = Batch(origins=o, dirs=d, gold=jnp.ones((64, 3)) * 0.5)
-    state, aux = train_step(state, batch, jax.random.PRNGKey(1), cfg)
-    assert np.isfinite(float(aux["loss"]))
-
-
 @pytest.mark.slow
 def test_hashgrid_converges_faster_than_tiny_mlp():
     """The time-to-quality claim at test scale: on the sphere fit the

@@ -165,41 +165,6 @@ def test_ms_dp_step_on_mesh():
     assert np.abs(p1 - p0).max() > 0
 
 
-def test_ms_dp_step_whole_ray_kernel():
-    """The full flagship composition: multiscale in-step sampling ->
-    per-ray radii -> IPE whole-ray fused kernel (interpret), inside the
-    8-device shard_map DP step."""
-    from nerf_rs_tpu.parallel import dp, mesh as mesh_mod
-    from nerf_rs_tpu.train.step import init_state, whole_ray_supported
-
-    cfg = Config(
-        camera=CameraConfig(width=16, height=16),
-        model=ModelConfig(net_depth=2, net_width=32, skip_layer=1,
-                          feature_width=32, view_head_width=16,
-                          pos_enc_levels=4, dir_enc_levels=2, ipe=True,
-                          sigma_activation="softplus"),
-        render=RenderConfig(num_samples=8, num_fine_samples=8,
-                            fine_mode="standalone", share_network=True),
-        train=TrainConfig(num_rays=128, precision="f32",
-                          whole_ray_block=8),
-        data=DataConfig(dataset="sphere", multiscale_levels=2),
-        use_whole_ray_train=True,
-    )
-    assert whole_ray_supported(cfg)
-    mesh = mesh_mod.make_mesh()
-    imgs = _imgs(v=8, h=16, w=16)
-    ds = DeviceDataset(
-        imgs, cfg.camera, angles=np.zeros((8, 2), np.float32),
-        sharding=mesh_mod.replicated_sharding(mesh), multiscale_levels=2,
-    )
-    state = dp.place_state(init_state(jax.random.PRNGKey(0), cfg), mesh)
-    step = dp.make_dp_train_step(cfg, mesh, dataset=ds)
-    state, aux = step(state, ds.train_store, ds.pose_data,
-                      jax.random.PRNGKey(1))
-    assert np.isfinite(float(aux["loss"]))
-    assert np.isfinite(float(aux["loss_fine"]))
-
-
 def test_multiscale_config_validation():
     ok = Config(data=DataConfig(multiscale_levels=4))
     assert ok.data.multiscale_levels == 4

@@ -135,51 +135,6 @@ def test_ndc_cli_auto_near_far():
         config_from_args(args2)
 
 
-def test_ndc_through_whole_ray_kernel():
-    """The flagship fused train kernel must accept NDC rays unchanged
-    (interpret mode on CPU): finite loss, finite grads, matching the
-    XLA-autodiff step numerically."""
-    from nerf_rs_tpu.train import Batch, init_state
-    from nerf_rs_tpu.train.step import (
-        loss_fn, whole_ray_grads, whole_ray_supported, _trainable,
-    )
-
-    cfg = Config(
-        camera=CameraConfig(width=16, height=16, near=0.0, far=1.0,
-                            ndc=True, focal=20.0),
-        model=ModelConfig(net_depth=2, net_width=32, skip_layer=1,
-                          feature_width=32, view_head_width=16,
-                          pos_enc_levels=4, dir_enc_levels=2),
-        render=RenderConfig(num_samples=8, randomized=False),
-        train=TrainConfig(num_rays=16, precision="f32", whole_ray_block=8),
-        use_whole_ray_train=True,
-    )
-    assert whole_ray_supported(cfg)
-    from nerf_rs_tpu.data.device_dataset import DeviceDataset
-
-    imgs = np.full((1, 16, 16, 4), 128, np.uint8)
-    ds = DeviceDataset(imgs, cfg.camera,
-                       c2w=np.eye(4, dtype=np.float32)[None])
-    batch = ds.sample_batch(jax.random.PRNGKey(0), 16)
-    state = init_state(jax.random.PRNGKey(1), cfg)
-    trainable = _trainable(state, cfg)
-    key = jax.random.PRNGKey(2)
-    grads, aux = whole_ray_grads(trainable, batch, key, cfg, None, 0)
-    assert np.isfinite(float(aux["loss"]))
-    (loss_x, _), grads_x = jax.value_and_grad(loss_fn, has_aux=True)(
-        trainable, batch, key, cfg, None, 0)
-    # bf16 kernel internals vs f32 XLA autodiff: same tolerance regime
-    # as tests/test_fused_train.py (per-tensor max-normalized)
-    np.testing.assert_allclose(float(aux["loss"]), float(loss_x), rtol=3e-3)
-
-    def close(a, b):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = max(np.abs(b).max(), 1e-6)
-        np.testing.assert_allclose(a / scale, b / scale, atol=4e-2)
-
-    jax.tree_util.tree_map(close, grads, grads_x)
-
-
 @pytest.mark.slow
 def test_ndc_training_fits_forward_facing_scene(tmp_path):
     """End-to-end: generate a tiny forward-facing procedural scene,

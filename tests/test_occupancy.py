@@ -150,24 +150,6 @@ def test_checkpoint_roundtrip_with_grid(tmp_path):
                                np.asarray(state.grid))
 
 
-def test_whole_ray_grads_with_grid():
-    """The fused-kernel path samples through the grid too (interpret)."""
-    from nerf_rs_tpu.train.step import Batch, init_state, train_step
-
-    cfg = _occ_cfg()
-    cfg = cfg.replace(
-        train=TrainConfig(num_rays=16, precision="mixed",
-                          learning_rate=1e-2, whole_ray_block=8),
-        use_whole_ray_train=True,
-    )
-    state = init_state(jax.random.PRNGKey(0), cfg)
-    state = state._replace(grid=_center_occupied_grid(8, 1.0, 0.4))
-    o, d = _axis_rays(16)
-    batch = Batch(origins=o, dirs=d, gold=jnp.full((16, 3), 0.5))
-    state, aux = train_step(state, batch, jax.random.PRNGKey(1), cfg)
-    assert np.isfinite(float(aux["loss"]))
-
-
 def test_loop_updates_grid(tmp_path):
     """train() with occ_res > 0 runs and the final grid is non-zero
     (the periodic update fired and the sphere has density by then)."""
@@ -215,13 +197,11 @@ def test_grid_guided_render_matches_direct():
     rgb_s, depth_s, acc_s = render_fn(
         state.params, state.params, grid, flat_o, flat_d, k
     )
-    # match the dp path's configuration exactly: the render default is
-    # the fused whole-ray kernel at bf16 (round 3), so the direct call
-    # must use it too for bitwise-comparable output
+    # match the dp path's configuration exactly (mixed precision: bf16
+    # matmuls) for bitwise-comparable output
     coarse, _ = render.render_rays(
         state.params, flat_o, flat_d, k, cfg.model, cfg.render,
-        cfg.camera, randomized=False, grid=grid,
-        use_fused=cfg.use_fused_kernel, dtype=jnp.bfloat16,
+        cfg.camera, randomized=False, grid=grid, dtype=jnp.bfloat16,
     )
     np.testing.assert_allclose(
         np.asarray(rgb_s), np.asarray(coarse.rgb), atol=2e-5
@@ -259,7 +239,7 @@ def test_occupancy_edges_concentrate_intervals():
     assert abs(float(e0.mean()) - (CAM.near + CAM.far) / 2) < 0.1
 
 
-def _ipe_occ_cfg(fine=0, fine_mode="union", whole_ray=False):
+def _ipe_occ_cfg(fine=0, fine_mode="union"):
     return Config(
         camera=CAM,
         model=ModelConfig(net_depth=3, net_width=32, skip_layer=2,
@@ -269,30 +249,25 @@ def _ipe_occ_cfg(fine=0, fine_mode="union", whole_ray=False):
         render=RenderConfig(num_samples=16, num_fine_samples=fine,
                             fine_mode=fine_mode, occ_res=8, occ_bins=32),
         train=TrainConfig(num_rays=16, precision="mixed",
-                          learning_rate=1e-2, whole_ray_block=8),
-        use_whole_ray_train=whole_ray,
+                          learning_rate=1e-2),
     )
 
 
 @pytest.mark.slow
 def test_ipe_composes_with_occupancy_and_union():
     """Round 4 (VERDICT item 3): --ipe rides the occ-guided coarse +
-    union fine record composition — config validates, the whole-ray
-    kernel covers it, and both the XLA and kernel paths step finite."""
-    from nerf_rs_tpu.train.step import (
-        Batch, init_state, train_step, whole_ray_supported,
-    )
+    union fine record composition — config validates and the step is
+    finite."""
+    from nerf_rs_tpu.train.step import Batch, init_state, train_step
 
-    cfg = _ipe_occ_cfg(fine=8, fine_mode="union", whole_ray=True)
-    assert whole_ray_supported(cfg)
+    cfg = _ipe_occ_cfg(fine=8, fine_mode="union")
     o, d = _axis_rays(16)
     batch = Batch(origins=o, dirs=d, gold=jnp.full((16, 3), 0.5))
-    for c in (cfg, cfg.replace(use_whole_ray_train=False)):
-        state = init_state(jax.random.PRNGKey(0), c)
-        state = state._replace(grid=_center_occupied_grid(8, 1.0, 0.4))
-        state, aux = train_step(state, batch, jax.random.PRNGKey(1), c)
-        assert np.isfinite(float(aux["loss"])), c.use_whole_ray_train
-        assert np.isfinite(float(aux["loss_fine"]))
+    state = init_state(jax.random.PRNGKey(0), cfg)
+    state = state._replace(grid=_center_occupied_grid(8, 1.0, 0.4))
+    state, aux = train_step(state, batch, jax.random.PRNGKey(1), cfg)
+    assert np.isfinite(float(aux["loss"]))
+    assert np.isfinite(float(aux["loss_fine"]))
 
 
 @pytest.mark.slow
@@ -308,7 +283,7 @@ def test_ipe_union_fine_edges_superset_of_coarse():
     o, d = _axis_rays(8)
     coarse, fine = render.render_rays(
         params, o, d, jax.random.PRNGKey(2), cfg.model, cfg.render,
-        cfg.camera, randomized=True, use_fused=False,
+        cfg.camera, randomized=True,
         grid=_center_occupied_grid(8, 1.0, 0.4),
     )
     assert coarse.weights.shape == (8, 16)
@@ -316,6 +291,6 @@ def test_ipe_union_fine_edges_superset_of_coarse():
     sa, fa = _ipe_occ_cfg(fine=8, fine_mode="standalone"), None
     c2, f2 = render.render_rays(
         params, o, d, jax.random.PRNGKey(2), sa.model, sa.render,
-        sa.camera, randomized=True, use_fused=False,
+        sa.camera, randomized=True,
     )
     assert f2.weights.shape == (8, 8)

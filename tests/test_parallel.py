@@ -60,8 +60,8 @@ def test_default_render_chunk_scales_with_samples():
 
 def test_default_render_chunk_flat_hashgrid_scales_down():
     # flat-layout hash gathers materialize 8 corner rows per (point,
-    # level): chunk 32768 x S=128 measured 36 GB on a 15.75 GB HBM
-    # (round 5) -> 8x smaller budget, the train-proven 4096 x 128 shape
+    # level), so its render chunk gets an 8x smaller ray-sample budget:
+    # the 4096 x 128 shape training runs at
     from nerf_rs_tpu.config import ModelConfig
 
     r128 = RenderConfig(num_samples=128)
@@ -150,9 +150,9 @@ def test_dp_grads_match_single_device_factored():
 
 
 def test_single_device_mesh_matches_plain_step():
-    """A 1-device mesh takes the plain-jit fast path (no shard_map —
-    measured +1.4 ms/step of wrapper overhead on v5e); it must be
-    numerically identical to the single-device train_step."""
+    """A 1-device mesh takes the plain-jit fast path (no shard_map
+    wrapper and its dispatch overhead); it must be numerically
+    identical to the single-device train_step."""
     cfg = _cfg()
     cfg = cfg.replace(render=RenderConfig(num_samples=16, randomized=False))
     m1 = mesh_mod.make_mesh(1)
@@ -191,12 +191,8 @@ def test_dp_training_converges():
 
 def test_sharded_render_matches_unsharded():
     cfg = _cfg()
-    # use_fused_kernel=False: this test checks SHARDING parity against
-    # the identical unsharded math; kernel-vs-jnp parity (bf16
-    # tolerance) is covered in test_fused.py.
     cfg = cfg.replace(
         render=RenderConfig(num_samples=16, randomized=False),
-        use_fused_kernel=False,
     )
     m = mesh_mod.make_mesh()
     state = init_state(jax.random.PRNGKey(0), cfg)
@@ -289,54 +285,3 @@ def test_flagship_width_dp_step():
     assert np.isfinite(float(aux["loss"]))
     assert int(jax.device_get(state.step)) == 1
 
-
-def test_slice_mesh_helpers():
-    m = mesh_mod.make_slice_mesh(2)
-    assert m.shape[mesh_mod.DCN_AXIS] == 2
-    assert m.shape[mesh_mod.DATA_AXIS] == 4
-    m4 = mesh_mod.make_slice_mesh(4)
-    assert m4.shape[mesh_mod.DCN_AXIS] == 4
-    with pytest.raises(AssertionError):
-        mesh_mod.make_slice_mesh(3)  # 8 devices don't split into 3
-
-
-def test_multislice_hierarchical_dp_matches_single_device():
-    """The 2-D (dcn=2, data=4) mesh with hierarchical grad sync
-    (pmean over ICI then pmean over DCN) must reproduce the
-    single-device step exactly: pmean-of-pmeans over equal shards is
-    the global mean (VERDICT r4 weak #5 — the multi-slice story)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    cfg = _cfg()
-    cfg = cfg.replace(render=RenderConfig(num_samples=16, randomized=False))
-    m = mesh_mod.make_slice_mesh(2)
-    key = jax.random.PRNGKey(0)
-    batch = _batch(jax.random.PRNGKey(1), cfg, 256)
-
-    s_single = init_state(key, cfg)
-    s_single, aux_single = train_step(s_single, batch,
-                                      jax.random.PRNGKey(2), cfg)
-
-    rep = NamedSharding(m, P())
-    bsh = NamedSharding(m, P((mesh_mod.DCN_AXIS, mesh_mod.DATA_AXIS)))
-    s_ms = jax.device_put(init_state(key, cfg), rep)
-    batch_ms = jax.tree_util.tree_map(
-        lambda x: jax.device_put(x, bsh), batch)
-    step_fn = dp.make_slice_dp_train_step(cfg, m)
-    s_ms, aux_ms = step_fn(s_ms, batch_ms, jax.random.PRNGKey(2))
-
-    np.testing.assert_allclose(
-        float(aux_single["loss"]), float(aux_ms["loss"]), rtol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(s_single.params["trunk"][0]["w"]),
-        np.asarray(s_ms.params["trunk"][0]["w"]),
-        atol=2e-5,
-    )
-    # every chip of every slice must hold identical params after the
-    # two-stage sync — divergence here is exactly the bug a missing
-    # DCN-axis collective would produce
-    for path, leaf in jax.tree_util.tree_leaves_with_path(s_ms.params):
-        shards = list(leaf.addressable_shards)
-        ref = np.asarray(shards[0].data)
-        for s in shards[1:]:
-            np.testing.assert_array_equal(ref, np.asarray(s.data))

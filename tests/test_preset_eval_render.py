@@ -1,8 +1,7 @@
 """Every preset's eval/render path must RUN under its CLI-resolved config.
 
-Round-5 regression: flipping the fused-render CLI default to True
-(VERDICT r4 task 1) exposed a routing bug — dp.make_dp_render packed
-the second-net slot as a radiance net unconditionally, but under
+Round-5 regression: a routing bug — dp.make_dp_render treated the
+second-net slot as a radiance net unconditionally, but under
 --preset unbounded that slot carries the PROPOSAL MLP (density-only
 tree, no feature/view/rgb heads), so the first mid-train eval render of
 every proposal-family CLI run died with KeyError('feature') after the
@@ -11,7 +10,7 @@ iter 5000).  test_bench_cli_seam.py pins the resolved FLAGS; this test
 goes one step further and actually renders a tiny frame for every
 preset exactly the way train/loop.py's eval hook does, so a config
 combination whose render path crashes fails CI before it can burn a
-30k-iteration chip run.
+30k-iteration run on the card.
 """
 
 import dataclasses
@@ -37,9 +36,9 @@ def _resolve(argv):
 
 
 def _shrink(cfg):
-    """Cut sample counts so interpret-mode Pallas stays fast while
-    preserving every routing-relevant field of the preset (proposal
-    on/off, share_network, fine mode, occ grid, fused flags)."""
+    """Cut sample counts so the CPU run stays fast while preserving
+    every routing-relevant field of the preset (proposal on/off,
+    share_network, fine mode, occ grid)."""
     r = cfg.render
     r = dataclasses.replace(
         r,

@@ -89,7 +89,7 @@ def test_rays_unit_norm_and_origin():
 
 
 def test_rotating_rays_equals_rotating_points():
-    """The TPU design rotates (o, d) once instead of every sample point
+    """The design here rotates (o, d) once instead of every sample point
     (fixing src/ray_sampling.rs:95 TODO); verify world points agree with
     the reference's rotate-each-point order (yaw then pitch)."""
     yaw, pitch = 1.1, 0.6
